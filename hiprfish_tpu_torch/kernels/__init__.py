@@ -1,0 +1,140 @@
+"""ctypes bindings of the hand-written CUDA kernels (sources in ``csrc/``).
+
+Each binding checks device, dtype, shape and contiguity, allocates its
+outputs with torch, launches on the current CUDA stream, raises on a
+launch error, and adds one to its own ``launches`` count. The library is
+built by nvcc at the first launch (kernels/_build.py); nothing is built or
+imported from CUDA when this module is imported.
+
+The ops modules call these only for CUDA tensors; a CPU tensor takes the
+plain-torch version beside each wrapper, and any other device raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hiprfish_tpu_torch.kernels import _build
+
+
+def _require(t: torch.Tensor, name: str, dtypes, ndim: int | None = None):
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def nlm(img: torch.Tensor, h: float, patch_size: int,
+        patch_distance: int) -> torch.Tensor:
+    """B1: fast-mode NLM of an (H, W) f32 image (csrc/nlm.cu)."""
+    _require(img, "nlm img", (torch.float32,), 2)
+    hh, ww = img.shape
+    if patch_size % 2 != 1 or not 0 < patch_distance < min(hh, ww):
+        raise ValueError("nlm: odd patch_size and 0 < patch_distance < "
+                         "min(H, W) required")
+    out = torch.empty_like(img)
+    lib = _build.load()
+    # h^2 rounded to f32 the way the reference computes jnp.float32(h * h)
+    h2 = float(np.float32(h * h))
+    err = lib.hf_nlm_f32(img.data_ptr(), out.data_ptr(), hh, ww,
+                         patch_distance, patch_size, h2, _stream(img))
+    _build.check(lib, err, "nlm")
+    nlm.launches += 1
+    return out
+
+
+def lpcv2d(img: torch.Tensor) -> torch.Tensor:
+    """B2: LP-CV enhancement of an (H, W) f32 image at patch_size=11,
+    phi_range=9, the stencil csrc/lpcv2d.cu holds as constants."""
+    _require(img, "lpcv2d img", (torch.float32,), 2)
+    out = torch.empty_like(img)
+    lib = _build.load()
+    err = lib.hf_lpcv2d_f32(img.data_ptr(), out.data_ptr(), img.shape[0],
+                            img.shape[1], 11, 9, _stream(img))
+    _build.check(lib, err, "lpcv2d")
+    lpcv2d.launches += 1
+    return out
+
+
+def label_stats(labels: torch.Tensor, image: torch.Tensor | None,
+                aux: torch.Tensor | None, mask: torch.Tensor | None,
+                num_segments: int, aux_classes: int, moments: bool,
+                h: int, w: int) -> torch.Tensor:
+    """B3: (num_segments, ncols) f32 stats table (csrc/segstats.cu).
+
+    ``labels`` (N,) int32; ``image`` (N, C) f32 or bf16; ``aux`` (N,)
+    int32; ``mask`` (N,) f32. Column order as segstats.LabelStats packs it.
+    """
+    _require(labels, "label_stats labels", (torch.int32,), 1)
+    n = labels.shape[0]
+    if n != h * w:
+        raise ValueError("label_stats: labels size != h * w")
+    nchan = 0
+    if image is not None:
+        _require(image, "label_stats image", (torch.float32, torch.bfloat16),
+                 2)
+        if image.shape[0] != n:
+            raise ValueError("label_stats: image rows != labels size")
+        nchan = image.shape[1]
+    if aux is not None:
+        _require(aux, "label_stats aux", (torch.int32,), 1)
+        if aux.shape[0] != n or aux_classes <= 0:
+            raise ValueError("label_stats: bad aux")
+    if mask is not None:
+        _require(mask, "label_stats mask", (torch.float32,), 1)
+        if mask.shape[0] != n:
+            raise ValueError("label_stats: mask size != labels size")
+    naux = aux_classes if aux is not None else 0
+    ncols = 2 + (5 if moments else 0) + nchan + naux \
+        + (1 if mask is not None else 0)
+    acc = torch.zeros((num_segments, ncols), dtype=torch.float32,
+                      device=labels.device)
+    lib = _build.load()
+    err = lib.hf_label_stats(
+        labels.data_ptr(), image.data_ptr() if image is not None else None,
+        int(image is not None and image.dtype == torch.bfloat16),
+        aux.data_ptr() if aux is not None else None,
+        mask.data_ptr() if mask is not None else None,
+        acc.data_ptr(), n, h, w, nchan, num_segments, naux, int(moments),
+        int(mask is not None), ncols, _stream(labels))
+    _build.check(lib, err, "label_stats")
+    label_stats.launches += 1
+    return acc
+
+
+def label_lookup(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """B4: per-pixel table[label] as f32, 0 for label <= 0
+    (csrc/segstats.cu). ``labels`` int32 any shape, ``table`` (S,) f32."""
+    _require(labels, "label_lookup labels", (torch.int32,))
+    _require(table, "label_lookup table", (torch.float32,), 1)
+    out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
+    lib = _build.load()
+    err = lib.hf_label_lookup(labels.data_ptr(), table.data_ptr(),
+                              out.data_ptr(), labels.numel(), table.shape[0],
+                              _stream(labels))
+    _build.check(lib, err, "label_lookup")
+    label_lookup.launches += 1
+    return out
+
+
+KERNELS = (nlm, lpcv2d, label_stats, label_lookup)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

@@ -1,0 +1,125 @@
+"""Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` files compile into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o libhiprfish_kernels.so csrc/*.cu
+
+The library lands in ``build/torch_kernels/<hash>/`` at the repository
+root, where ``<hash>`` covers the sources and the flags, so an edited
+source rebuilds and an unchanged one is reused. The build happens at the
+first kernel launch, never at import. A missing nvcc or a failed build
+raises with the compiler's output: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+LIB_NAME = "libhiprfish_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Every entry returns cudaError_t (int).
+SIGNATURES = {
+    # img, out, h, w, pd, patch, h2, stream
+    "hf_nlm_f32": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # img, out, h, w, patch, phi, stream
+    "hf_lpcv2d_f32": (_P, _P, _I, _I, _I, _I, _P),
+    # labels, image, image_is_bf16, aux, mask, acc, n, h, w, nchan,
+    # num_segments, aux_classes, moments, has_mask, ncols, stream
+    "hf_label_stats": (_P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P),
+    # labels, table, out, n, num_segments, stream
+    "hf_label_lookup": (_P, _P, _P, _L, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, /usr/local/cuda or $PATH; raises if absent."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "$PATH): the hiprfish_tpu_torch CUDA kernels cannot be built")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed build directory (if not built)."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.hf_error_string.argtypes = [ctypes.c_int]
+            lib.hf_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
+                           f"{err} ({lib.hf_error_string(err).decode()})")

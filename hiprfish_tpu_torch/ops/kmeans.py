@@ -1,0 +1,89 @@
+"""Histogram Lloyd KMeans for 1-D intensity clustering (torch port of
+hiprfish_tpu/ops/kmeans.py).
+
+On CUDA the histogram's ``index_add_`` sums in a run-dependent order, so a
+bin value can move by an ulp against the CPU; the cluster centres, and the
+brightest-cluster threshold built from them, then move by a few ulps, and
+only pixels within those ulps of the threshold can change side. On the CPU
+the sums are sequential and the masks equal the reference's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _value_histogram(values: torch.Tensor, n_bins: int):
+    """(counts, bin_val, vmin, vmax, span) over a subsample of whole
+    512-value blocks at a row stride once there are more than 2^19
+    values."""
+    v = values.reshape(-1).to(torch.float32)
+    vmin = torch.min(v)
+    vmax = torch.max(v)
+    span = torch.clamp(vmax - vmin, min=1e-12)
+    max_hist = 1 << 19
+    if v.shape[0] > max_hist:
+        blk = 512
+        nb = v.shape[0] // blk
+        stride = -(-nb * blk // max_hist)
+        vs = v[:nb * blk].reshape(nb, blk)[::stride].reshape(-1)
+    else:
+        vs = v
+    idx = torch.clamp(((vs - vmin) / span * (n_bins - 1)).to(torch.int32),
+                      0, n_bins - 1)
+    cs = torch.zeros((n_bins, 2), dtype=torch.float32, device=v.device)
+    cs.index_add_(0, idx, torch.stack([torch.ones_like(vs), vs], dim=-1))
+    counts = cs[:, 0]
+    sums = cs[:, 1]
+    bin_centers = torch.where(counts > 0,
+                              sums / torch.clamp(counts, min=1.0),
+                              torch.zeros_like(sums))
+    ar = torch.arange(n_bins, dtype=torch.float32, device=v.device)
+    bin_pos = vmin + (ar + 0.5) / n_bins * span
+    bin_val = torch.where(counts > 0, bin_centers, bin_pos)
+    return counts, bin_val, vmin, vmax, span
+
+
+def _lloyd_from_histogram(counts, bin_val, vmin, vmax, span, k: int,
+                          iters: int) -> torch.Tensor:
+    """Lloyd over a fixed histogram from three deterministic starts
+    (histogram quantiles, value-range spread, max-anchored), keeping the
+    lowest inertia; sorted-ascending centres."""
+    n_bins = counts.shape[0]
+    dev = counts.device
+    qs = (torch.arange(k, dtype=torch.float32, device=dev) + 0.5) / k
+    cdf = torch.cumsum(counts, dim=0)
+    qbins = torch.searchsorted(cdf, qs * cdf[-1])
+    quant = bin_val[torch.clamp(qbins, 0, n_bins - 1)]
+    centers = torch.stack(
+        [quant, vmin + qs * span, torch.cat([quant[:-1], vmax[None]])])
+    # the three starts run as one batch: centers (3, k)
+    cnt = counts[None, :, None]
+    bv = bin_val[None, :, None]
+    for _ in range(iters):
+        d = torch.abs(bv - centers[:, None, :])
+        assign = torch.argmin(d, dim=2)
+        one_hot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
+        wgt = one_hot * cnt
+        wsum = wgt.sum(1)
+        new = (wgt * bv).sum(1) / torch.clamp(wsum, min=1e-12)
+        centers = torch.where(wsum > 0, new, centers)
+    d = torch.abs(bv - centers[:, None, :])
+    inertia = torch.sum(counts[None, :] * torch.min(d, dim=2).values ** 2,
+                        dim=1)
+    best = centers[torch.argmin(inertia)]
+    return torch.sort(best).values
+
+
+def kmeans1d_centers(values: torch.Tensor, k: int, iters: int = 40,
+                     n_bins: int = 2048) -> torch.Tensor:
+    """Sorted-ascending cluster centres of the values."""
+    return _lloyd_from_histogram(*_value_histogram(values, n_bins), k, iters)
+
+
+def brightest_cluster_mask(image: torch.Tensor, k: int = 2,
+                           iters: int = 40) -> torch.Tensor:
+    """Boolean mask of the cluster with the highest centre:
+    value >= midpoint of the two highest centres."""
+    centers = kmeans1d_centers(image, k, iters)
+    return image >= (centers[-1] + centers[-2]) / 2.0

@@ -1,0 +1,99 @@
+"""Port parity: block-cosine distances, check heads and the kNN vote vs the
+JAX package on the CPU, with the committed 127-code classifier fixture
+loaded once by the JAX loader and once by the port's jax-free loader."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hiprfish_tpu.config import SEVEN_BIT
+from hiprfish_tpu.models import metrics as jmetrics
+from hiprfish_tpu.models.artifacts import load_classifier as jload
+from hiprfish_tpu.models.classifier import _mlp_logit
+from hiprfish_tpu.pipeline import fused as jfused
+from hiprfish_tpu.utils import synthetic
+from hiprfish_tpu_torch.models import metrics as tmetrics
+from hiprfish_tpu_torch.models.artifacts import load_classifier as tload
+from hiprfish_tpu_torch.models.classifier import CheckHead
+from hiprfish_tpu_torch.pipeline import fused as tfused
+
+torch.set_num_threads(1)
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "torch_port_clf_7b_127x50.npz")
+
+
+def _spectra(n, seed):
+    """Noisy normalized barcode spectra, a few all-zero rows and blocks."""
+    rng = np.random.RandomState(seed)
+    lut = synthetic.fluorophore_spectra(SEVEN_BIT)
+    rows = np.stack([synthetic.barcode_spectrum(SEVEN_BIT, 1 + i % 127, lut)
+                     for i in range(n)])
+    rows = np.clip(rows * rng.uniform(0.7, 1.3, (n, 1))
+                   + rng.randn(n, 63) * 0.02, 0, None).astype(np.float32)
+    rows /= np.maximum(rows.max(axis=1, keepdims=True), 1e-12)
+    rows[0] = 0.0
+    rows[1, 23:43] = 0.0
+    return rows
+
+
+def test_port_loader_matches_jax_loader():
+    a, b = tload(FIXTURE), jload(FIXTURE)
+    for f in ("layout_name", "n_channels", "blocks", "check_slice",
+              "codebook", "check_blocks", "n_neighbors", "temperature"):
+        assert getattr(a, f) == getattr(b, f), f
+    np.testing.assert_array_equal(a.train_features, b.train_features)
+    np.testing.assert_array_equal(a.train_labels, b.train_labels)
+    for pa, pb in zip(a.check_params, b.check_params):
+        for k in ("w1", "b1", "w2", "b2"):
+            np.testing.assert_array_equal(pa[k], pb[k])
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_block_cosine_distance_matrix(gated):
+    clf = tload(FIXTURE)
+    x = np.concatenate([_spectra(40, 0),
+                        (np.random.RandomState(1).rand(40, 4) > 0.5)
+                        .astype(np.float32)], axis=1)
+    y = clf.train_features[:300]
+    cs = clf.check_slice if gated else None
+    ref = np.asarray(jmetrics.block_cosine_distance_matrix(
+        jnp.asarray(x), jnp.asarray(y), clf.blocks, cs))
+    out = tmetrics.block_cosine_distance_matrix(
+        torch.from_numpy(x), torch.from_numpy(y), clf.blocks, cs).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_check_head_matches_mlp_logit():
+    clf = tload(FIXTURE)
+    x = _spectra(32, 2)[:, :23]
+    p = clf.check_params[0]
+    ref = np.asarray(_mlp_logit({k: jnp.asarray(v) for k, v in p.items()},
+                                jnp.asarray(x)))
+    out = CheckHead.from_numpy(p)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_cells,cap", [(20, 32), (60, 32), (60, None)])
+def test_classify_capped_matches_jax(n_cells, cap):
+    ja, js = jfused.classifier_to_device_args(jload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    rows = _spectra(64, 3)
+    rows[n_cells + 1:] = 0.0
+    (n_classes, blocks, check_slice, n_channels, k, temperature,
+     check_blocks) = js
+    ci_j, mp_j = jfused.classify_capped(
+        jnp.asarray(rows), jnp.int32(n_cells), cap, ja["check_params"],
+        check_blocks, None, None, ja["train_features"], ja["train_labels"],
+        n_classes, blocks, check_slice, n_channels, k, temperature)
+    ci_t, mp_t = tfused.classify_capped(
+        torch.from_numpy(rows), torch.tensor(n_cells), cap,
+        ta["check_heads"], ts[6], None, None, ta["train_features"],
+        ta["train_labels"], *ts[:6])
+    np.testing.assert_array_equal(ci_t.numpy(), np.asarray(ci_j))
+    np.testing.assert_allclose(mp_t.numpy(), np.asarray(mp_j),
+                               rtol=1e-5, atol=0)
+    assert (np.asarray(ci_j)[2:n_cells + 1] > 0).any()

@@ -1,0 +1,177 @@
+"""The CUDA kernels' bindings, build and dispatch, and the port on the card.
+
+Tests marked ``cuda`` hold each kernel against its plain-torch twin on the
+card, and the CUDA KMeans against the CPU one; they need an NVIDIA GPU
+with nvcc and skip without one. This file imports no jax, so it runs on a
+machine without it. On the card:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda
+
+The unmarked tests run anywhere: a wrapper takes its plain version only
+for a CPU tensor, refuses other devices, and the bindings refuse non-CUDA
+tensors before anything is built.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hiprfish_tpu_torch import kernels
+from hiprfish_tpu_torch.kernels import _build
+from hiprfish_tpu_torch.ops import denoise, kmeans, line_profile, segstats
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda", 0)
+
+
+def _smooth(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:shape[0], :shape[1]].astype(np.float32)
+    return (0.5 + 0.3 * np.sin(yy / 17.0) * np.cos(xx / 23.0)
+            + 0.005 * rng.randn(*shape)).astype(np.float32)
+
+
+def _bimodal(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    img = rng.gamma(2.0, 0.05, shape).astype(np.float32)
+    n = shape[0] * shape[1] // 20
+    img[rng.randint(0, shape[0], n), rng.randint(0, shape[1], n)] += \
+        rng.normal(0.8, 0.1, n).astype(np.float32)
+    return img
+
+
+def _labels(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    lab = np.zeros(shape, np.int32)
+    for i in range(1, 40):
+        r, c = rng.randint(0, shape[0] - 6), rng.randint(0, shape[1] - 9)
+        lab[r:r + 6, c:c + 9] = i
+    return lab
+
+
+# -- anywhere ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: kernels.nlm(t, 0.02, 7, 11),
+    lambda t: kernels.lpcv2d(t),
+    lambda t: kernels.label_stats(t.reshape(-1).to(torch.int32), None, None,
+                                  None, 8, 0, False, *t.shape),
+    lambda t: kernels.label_lookup(t.to(torch.int32), torch.ones(8)),
+])
+def test_bindings_refuse_cpu_tensors(call):
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.zeros((16, 16)))
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: denoise.denoise_nl_means(t),
+    lambda t: line_profile.lp_cv_enhance_2d(t),
+    lambda t: segstats.label_stats(t.to(torch.int32), None, 8),
+    lambda t: segstats.label_lookup(t.to(torch.int32), torch.ones(8)),
+])
+def test_wrappers_refuse_other_devices(call):
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(torch.zeros((16, 16), device="meta"))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_build_dir_hashes_sources_and_flags(monkeypatch):
+    d = _build.build_dir()
+    assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
+    assert {p.name for p in _build.sources()} >= {
+        "nlm.cu", "lpcv2d.cu", "segstats.cu"}
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.build_dir() != d
+
+
+def test_reset_launches():
+    kernels.nlm.launches = 3
+    kernels.reset_launches()
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+# -- on the card ------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(96, 160), (70, 53), (300, 257)])
+def test_nlm_kernel_matches_plain(cuda, shape):
+    img = torch.from_numpy(_smooth(shape)).to(cuda)
+    out = kernels.nlm(img, 0.02, 7, 11)
+    ref = denoise.denoise_nl_means_plain(img, 0.02, 7, 11)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(96, 160), (33, 41)])
+def test_lpcv2d_kernel_matches_plain(cuda, shape):
+    img = torch.from_numpy(_smooth(shape, 1)).to(cuda)
+    out = line_profile.lp_cv_enhance_2d(img)
+    ref = line_profile.lp_cv_enhance_2d_plain(img)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_label_stats_kernel_matches_plain(cuda, dtype):
+    rng = np.random.RandomState(2)
+    lab = torch.from_numpy(_labels((64, 96))).to(cuda)
+    img = torch.from_numpy(rng.rand(64, 96, 7).astype(np.float32)) \
+        .to(cuda).to(dtype)
+    aux = torch.from_numpy(rng.randint(-1, 5, (64, 96)).astype(np.int32)) \
+        .to(cuda)
+    mask = torch.from_numpy((rng.rand(64, 96) > 0.4).astype(np.float32)) \
+        .to(cuda)
+    args = (lab.reshape(-1), img.reshape(-1, 7), aux.reshape(-1),
+            mask.reshape(-1), 48, 4, True, 64, 96)
+    out = kernels.label_stats(*args)
+    ref = segstats.label_stats_table_plain(*args)
+    torch.testing.assert_close(out[:, :2], ref[:, :2], rtol=0, atol=0)
+    torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_label_lookup_kernel_matches_plain(cuda):
+    lab = torch.from_numpy(_labels((64, 96), 3)).to(cuda)
+    lab[0, :5] = torch.tensor([-3, 0, 100, 47, 48], device=cuda)
+    table = torch.rand(48, device=cuda) + 1.0
+    out = kernels.label_lookup(lab, table)
+    torch.testing.assert_close(out, segstats.label_lookup_plain(lab, table),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_brightest_cluster_mask_cuda_vs_cpu(cuda):
+    img = torch.from_numpy(_bimodal((768, 768)))
+    c_cpu = kmeans.kmeans1d_centers(img, 2, 40)
+    c_gpu = kmeans.kmeans1d_centers(img.to(cuda), 2, 40).cpu()
+    # CUDA's index_add_ adds each bin's values in run order and its
+    # reductions in another order than the CPU: the centres agree to a few
+    # ulps, not bitwise
+    torch.testing.assert_close(c_gpu, c_cpu, rtol=1e-6, atol=0)
+    m_cpu = kmeans.brightest_cluster_mask(img, 2, 40)
+    m_gpu = kmeans.brightest_cluster_mask(img.to(cuda), 2, 40).cpu()
+    differ = m_cpu != m_gpu
+    if differ.any():
+        # only pixels within that rounding of the threshold change side
+        thr = (c_cpu[-1] + c_cpu[-2]) / 2
+        assert float((img[differ] - thr).abs().max()) <= 1e-6 * float(thr)
