@@ -7,18 +7,36 @@ Phases, each printing its own line; any failure raises, so the script exits
 non-zero and prints no result:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from csrc/ (nvcc) and print the build time;
-  3. run each kernel against its plain-torch twin on the card at the main
-     path's shapes (2000^2 images, the 2000^2 label image with the bf16
-     (2000, 2000, 63) cube and 16384 segments, a 16384-entry table), and
-     print the max error against the stated tolerance and both median times;
+  2. build the six CUDA kernels from csrc/ (one nvcc per source, in
+     parallel) and print the build time;
+  3. run the 2D kernels against their plain-torch twins on the card at the
+     main path's shapes (2000^2 images, the 2000^2 label image with the
+     bf16 (2000, 2000, 63) cube and 16384 segments, a 16384-entry table),
+     and print the max error against the stated tolerance and both median
+     times;
   4. run the port's fov_step on a 256^2 FOV on the CPU (plain versions) and
      on the card (kernels), and hold the two results together;
   5. run fov_step on the 2000^2 7-bit FOV (400 planted cells) with the
-     committed 127-code classifier and max_cells=8192; every kernel's launch
-     count must rise during that call; barcode accuracy against the planted
-     truth must be >= 0.99 over >= 380 matched cells; print ms/FOV (median
-     of 5 synchronised calls after the counted one).
+     committed 127-code classifier and max_cells=8192; every 2D kernel's
+     launch count must rise during that call; barcode accuracy against the
+     planted truth must be >= 0.99 over >= 380 matched cells; print ms/FOV
+     (median of 5 synchronised calls after the counted one);
+  6. build the 3D fixture (tools/bench3d.py's 2020 x 2020 x 170 volume,
+     9,408 planted cells, seed 5) on the card; hold B6 (3D LP-CV, bf16)
+     against its plain twin on a 256 x 170 x 256 (X, Z, Y) sub-volume and
+     B5 (channels-major stats) against its plain twin on a bf16
+     (63, 2, 2020, 2020) slab with 16384 segments;
+  7. run segment_3d_tiled on the 144 x 96 x 40 volume of the JAX package's
+     tiled test on the CPU (plain versions) and on the card (kernels), both
+     in bf16 LP-CV mode: equal n_cells, segmentation agreement >= 0.9999;
+  8. run the 3D volume path once at full size, as tools/bench3d.py composes
+     it: cut 2 x 4 shifted microscope tiles (60-px overlap) -> stitch ->
+     segment_3d_tiled(max_cells=16384, tile_x=360, margin=64,
+     tile_cap=8192, scan_cap=32) -> measure with bf16 channels-major slabs
+     (z_chunk=2, B5) -> classify; n_cells must be 9,408 and barcode
+     accuracy >= 0.99 over >= 9,300 matched cells, and B3, B4, B5 and B6
+     must all launch; print each stage's seconds (synchronised), the total
+     and the peak device memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. The script imports neither jax
@@ -40,7 +58,8 @@ import numpy as np
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "fixtures", "torch_port_clf_7b_127x50.npz")
 MAX_CELLS = 8192
-# kernel vs plain tolerances (absolute, on the card)
+# kernel vs plain tolerances on the card (absolute unless EXACT_COLS
+# names the table's exact count columns; the sums are then relative)
 TOL = {
     # NLM: weights exp(-d2/h^2) amplify f32 rounding of the box sums by
     # 1/h^2 = 2500; the kernel sums 49 terms directly where the plain
@@ -51,25 +70,44 @@ TOL = {
     # within 2^-16 relative of the plain version
     "label_stats": 2.0 ** -16,
     "label_lookup": 0.0,
+    # B5 as B3: counts exact, channel sums within 2^-16 relative
+    "stats_cm": 2.0 ** -16,
+    # B6: the same bf16 samples and f32 ratios; only the f32 summation
+    # order of the 72-orientation mean differs
+    "lpcv3d": 1e-6,
 }
+# leading columns that must agree exactly (counts)
+EXACT_COLS = {"label_stats": 2, "stats_cm": 1}
 TOL_TEXT = {
     "nlm": f"tol {TOL['nlm']:.0e} abs",
     "lpcv2d": f"tol {TOL['lpcv2d']:.0e} abs",
     "label_stats": "counts exact, sums tol 2^-16 rel",
     "label_lookup": "exact",
+    "stats_cm": "counts exact, sums tol 2^-16 rel",
+    "lpcv3d": f"tol {TOL['lpcv3d']:.0e} abs",
 }
 REPLACES = {
     "nlm": "hiprfish_tpu/ops/nlm_pallas.py:399",
     "lpcv2d": "hiprfish_tpu/ops/lp_pallas.py:72",
     "label_stats": "hiprfish_tpu/ops/segstats_pallas.py:168",
     "label_lookup": "hiprfish_tpu/ops/segstats_pallas.py:452",
+    "stats_cm": "hiprfish_tpu/ops/segstats_pallas.py:327",
+    "lpcv3d": "hiprfish_tpu/ops/lp3d_pallas.py:198",
 }
 SOURCES = {
     "nlm": "hiprfish_tpu_torch/csrc/nlm.cu",
     "lpcv2d": "hiprfish_tpu_torch/csrc/lpcv2d.cu",
     "label_stats": "hiprfish_tpu_torch/csrc/segstats.cu",
     "label_lookup": "hiprfish_tpu_torch/csrc/segstats.cu",
+    "stats_cm": "hiprfish_tpu_torch/csrc/segstats.cu",
+    "lpcv3d": "hiprfish_tpu_torch/csrc/lpcv3d.cu",
 }
+PATH_2D = ("nlm", "lpcv2d", "label_stats", "label_lookup")
+PATH_3D = ("label_stats", "label_lookup", "stats_cm", "lpcv3d")
+# the 3D volume of tools/bench3d.py and its segmentation settings
+SHAPE_3D = (2020, 2020, 170)
+MAX_CELLS_3D = 16384
+TILED_3D = dict(tile_x=360, margin=64, tile_cap=8192, scan_cap=32)
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -93,11 +131,11 @@ def _agree(torch, name, out_k, out_p):
     plain twin's."""
     diff = (out_k - out_p).abs()
     err = float(diff.max())
-    if name != "label_stats":
+    k = EXACT_COLS.get(name)
+    if k is None:
         return err, err <= TOL[name]
-    # columns 0-1 are counts and border counts: exact
-    rel = float((diff[:, 2:] / out_p[:, 2:].abs().clamp(min=1.0)).max())
-    return err, (bool(torch.equal(out_k[:, :2], out_p[:, :2]))
+    rel = float((diff[:, k:] / out_p[:, k:].abs().clamp(min=1.0)).max())
+    return err, (bool(torch.equal(out_k[:, :k], out_p[:, :k]))
                  and rel <= TOL[name])
 
 
@@ -119,6 +157,192 @@ def _barcode_accuracy(seg, truth, codes_pred, cell_codes, codebook, layout,
                   layout.code_str(cell_codes[tid - 1])
                   for lab, tid in majority.items())
     return correct, len(majority)
+
+
+def _volume_stack(codes, shape):
+    """The (X, Y, Z, 63) spectral volume of the JAX package's tiled 3D test
+    (tests/test_biofilm_and_3d.py::_make_volume_stack): ellipsoidal cells
+    on a grid, one barcode spectrum each, uniform noise."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT
+    from hiprfish_tpu_torch.utils import synthetic
+
+    rng = np.random.RandomState(0)
+    x, y, z = shape
+    lut = synthetic.fluorophore_spectra(SEVEN_BIT)
+    vol = rng.rand(x, y, z, SEVEN_BIT.n_channels).astype(np.float32) * 0.01
+    grid = int(np.ceil(len(codes) ** 0.5))
+    xs = np.linspace(12, x - 12, grid)
+    ys = np.linspace(12, y - 12, grid)
+    xx, yy, zz = np.mgrid[:x, :y, :z]
+    for i, c in enumerate(codes):
+        r2 = (((xx - xs[i // grid]) / 6.0) ** 2
+              + ((yy - ys[i % grid]) / 4.0) ** 2 + ((zz - z / 2) / 5.0) ** 2)
+        profile = np.where(r2 <= 1.0, 1.0 - 0.2 * np.sqrt(np.clip(r2, 0, 1)),
+                           0.0)
+        vol += profile[..., None] * synthetic.barcode_spectrum(
+            SEVEN_BIT, c, lut)[None, None, None, :]
+    return vol
+
+
+def _accuracy_3d(torch, s3, spec, n_codes, seg_xzy, pred, lut_class,
+                 n_found: int, max_cells: int):
+    """tools/bench3d.py's rule: each found label takes the planted barcode
+    that covers most of its voxels; accuracy is the fraction of labels
+    with planted voxels whose call is that barcode. Returns (correct,
+    matched)."""
+    dev = seg_xzy.device
+    counts = torch.zeros(max_cells * n_codes, dtype=torch.int64, device=dev)
+    for z0 in range(0, spec.shape[2], 10):
+        zc = min(10, spec.shape[2] - z0)
+        truth, code, _ = s3.truth_chunk(spec, n_codes, z0, zc, dev)
+        seg = seg_xzy[:, z0:z0 + zc, :].permute(0, 2, 1).to(torch.int64)
+        flat = torch.where(truth > 0, seg * n_codes + code, 0).reshape(-1)
+        counts += torch.bincount(flat, minlength=max_cells * n_codes)
+    counts = counts.reshape(max_cells, n_codes).cpu().numpy()
+    counts[0] = 0
+    has_truth = counts.sum(axis=1) > 0
+    truth_class = lut_class[counts.argmax(axis=1)]
+    labs = np.arange(1, min(n_found, max_cells - 1) + 1)
+    valid = has_truth[labs]
+    correct = int((pred[labs][valid] == truth_class[labs][valid]).sum())
+    return correct, int(valid.sum())
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _volume_tiles(torch, dev, spec, lut_dev, grid=(2, 4), overlap=60):
+    """tools/bench3d.py's microscope tiles of the fixture volume: a 2 x 4
+    grid with 60-px overlap, each tile's window offset by its own random
+    shift (RandomState(3), first tile unshifted) and cut from the
+    edge-padded scene, so shifted tiles see true content at their
+    edges."""
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    shape = spec.shape
+    vol = s3.build_sum_volume(spec, lut_dev.shape[0],
+                              lut_dev.sum(dim=1).cpu(), seed=1, z_chunk=16,
+                              device=dev)
+    gy, gx = grid
+    ty = (shape[0] + (gy - 1) * overlap) // gy
+    tx = (shape[1] + (gx - 1) * overlap) // gx
+    shift_rng = np.random.RandomState(3)
+    tile_shifts = [tuple(shift_rng.randint(-3, 4, 3)) for _ in range(gy * gx)]
+    tile_shifts[0] = (0, 0, 0)
+    S = 3
+    volp = torch.nn.functional.pad(vol[None, None], (S,) * 6,
+                                   mode="replicate")[0, 0]
+    del vol
+    tiles = []
+    for i in range(gy):
+        for j in range(gx):
+            dy, dx, dz = tile_shifts[i * gx + j]
+            y0 = i * (ty - overlap) + S - dy
+            x0 = j * (tx - overlap) + S - dx
+            tiles.append(volp[y0:y0 + ty, x0:x0 + tx,
+                              S - dz:S - dz + shape[2]].clone())
+    return tiles
+
+
+def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
+                 tiled: dict, max_cells: int, z_chunk: int = 2,
+                 log=lambda m: None) -> dict:
+    """One 3D pass as tools/bench3d.py composes it, from the tiles (popped
+    from the one-element list ``tile_box``, so they free after the
+    stitch): stitch -> segment_3d_tiled (out_layout="xzy") -> measure
+    bf16 channels-major slabs (make_fused_measure, B5) -> classify.
+    Returns the labels, n_cells, mean spectra, calls and each stage's
+    seconds (synchronised)."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT as layout
+    from hiprfish_tpu_torch.pipeline import fused, segment3d
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    shape = spec.shape
+    dev = lut_dev.device
+    stages = {}
+    t0 = time.time()
+    tiles = tile_box.pop()
+    stitched = segment3d.stitch_tiles_device(tiles, (2, 4), 60, shape,
+                                             pad=10)
+    del tiles
+    stitched = stitched[10:10 + shape[0], 10:10 + shape[1],
+                        10:10 + shape[2]].contiguous()
+    _sync(torch, dev)
+    stages["stitch"] = time.time() - t0
+    t0 = time.time()
+    box = [stitched]
+    del stitched
+    seg_xzy, n_cells, _ = segment3d.segment_3d_tiled(
+        box, cfg, max_cells, out_layout="xzy", log=log, **tiled)
+    _sync(torch, dev)
+    stages["segment"] = time.time() - t0
+    t0 = time.time()
+    run = segment3d.make_fused_measure(
+        lambda z0, zc: s3.channel_chunk_cm(spec, lut_dev.shape[0], z0, zc,
+                                           lut_dev, 1, torch.bfloat16),
+        shape, z_chunk, layout.n_channels, max_cells)
+    avg, _ = run(seg_xzy.permute(1, 0, 2).contiguous())
+    _sync(torch, dev)
+    stages["measure"] = time.time() - t0
+    t0 = time.time()
+    norm = avg / torch.clamp(torch.max(avg, dim=1, keepdim=True).values,
+                             min=1e-12)
+    pred, _ = fused.classify_device(
+        norm, arrays["check_heads"], static[6], arrays.get("scaler_mean"),
+        arrays.get("scaler_scale"), arrays["train_features"],
+        arrays["train_labels"], *static[:6])
+    pred = pred.cpu().numpy()
+    stages["classify"] = time.time() - t0
+    return {"seg_xzy": seg_xzy, "n_cells": n_cells, "avg": avg,
+            "pred": pred, "stages": stages}
+
+
+def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
+                 max_cells: int) -> dict:
+    """The 3D pass on ``dev`` with launches counted from zero, then its
+    accuracy against the planted truth. Returns stage seconds, total,
+    n_cells, correct/matched, launch counts and peak device memory."""
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.config import SEVEN_BIT as layout
+    from hiprfish_tpu_torch.pipeline import fused
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    tiles = _volume_tiles(torch, dev, spec, lut_dev)
+    arrays, static = fused.classifier_from_numpy(clf, dev)
+    n_codes = lut_dev.shape[0]
+    lut_class = np.array([list(clf.codebook).index(layout.code_str(c + 1))
+                          for c in range(n_codes)])
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_seg = time.time()
+
+    def log(msg):
+        _sync(torch, dev)
+        print(f"phase 8   +{time.time() - t_seg:.2f} s: {msg}")
+
+    # hand the tiles over, so that they free after the stitch
+    tile_box = [tiles]
+    del tiles
+    kernels.reset_launches()
+    r = _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
+                     tiled, max_cells, log=log)
+    total = time.time() - t_seg
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+    seg_xzy, avg = r["seg_xzy"], r["avg"]
+    if seg_xzy.shape != (spec.shape[0], spec.shape[2], spec.shape[1]) \
+            or not bool(torch.isfinite(avg).all()):
+        raise AssertionError("3D path output malformed")
+    correct, matched = _accuracy_3d(torch, s3, spec, n_codes, seg_xzy,
+                                    r["pred"], lut_class, r["n_cells"],
+                                    max_cells)
+    return {"stages": r["stages"], "total": total,
+            "n_cells": r["n_cells"], "correct": correct, "matched": matched,
+            "launches": launches, "peak_gib": peak}
 
 
 def _smooth_image(shape, seed: int):
@@ -171,13 +395,14 @@ def main() -> int:
           f"{len(cell_codes)} cells, built in {time.time() - t0:.1f} s")
     report = {}
 
-    def check(name, kernel, plain, reps, plain_reps):
+    def check(name, kernel, plain, reps, plain_reps, phase=3):
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         err, ok = _agree(torch, name, out_k, out_p)
         ms = _time_ms(torch, kernel, reps)
         plain_ms = _time_ms(torch, plain, plain_reps)
-        print(f"phase 3 {name}: max_abs_err {err:.3e} ({TOL_TEXT[name]}) "
+        print(f"phase {phase} {name}: max_abs_err {err:.3e} "
+              f"({TOL_TEXT[name]}) "
               f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -242,7 +467,7 @@ def main() -> int:
     first_s = time.time() - t0
     launches = kernels.launch_counts()
     print(f"phase 5 first call {first_s:.2f} s, launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in PATH_2D if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by fov_step: {missing}")
     seg = res.segmentation.cpu().numpy()
@@ -267,10 +492,83 @@ def main() -> int:
     if total < 380 or acc < 0.99:
         raise AssertionError("accuracy below 0.99 or fewer than 380 cells")
 
+
+    # 6. the 3D fixture; B6 and B5 against their plain twins
+    from hiprfish_tpu_torch.pipeline import segment3d
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    spec = s3.VolumeSpec(shape=SHAPE_3D, spacing=(36, 36, 52), seed=5)
+    codes3 = list(range(1, 128))
+    lut = np.stack([synthetic.barcode_spectrum(layout, c) for c in codes3])
+    lut_dev = torch.from_numpy(lut.astype(np.float32)).to(dev)
+    t0 = time.time()
+    vol = s3.build_sum_volume(spec, len(codes3), lut_dev.sum(dim=1).cpu(),
+                              seed=1, z_chunk=16, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 6 fixture: {SHAPE_3D} volume, {spec.n_cells} planted "
+          f"cells, built in {time.time() - t0:.1f} s")
+    sub = (vol[:256, :256, :] / vol.max()).permute(0, 2, 1).contiguous()
+    check("lpcv3d", lambda: kernels.lpcv3d(sub, True),
+          lambda: line_profile.lp_cv_enhance_3d_plain(
+              sub, bf16=True, layout="xzy"), 5, 2, phase=6)
+    del sub
+    lab_cm = s3.truth_chunk(spec, len(codes3), 78, 2, dev)[0] \
+        .permute(2, 0, 1).contiguous().reshape(-1)
+    img_cm = s3.channel_chunk_cm(spec, len(codes3), 78, 2, lut_dev, 1,
+                                 torch.bfloat16).reshape(63, -1)
+    check("stats_cm", lambda: kernels.stats_cm(lab_cm, img_cm, MAX_CELLS_3D),
+          lambda: segstats.stats_cm_plain(lab_cm, img_cm, MAX_CELLS_3D),
+          10, 3, phase=6)
+    del lab_cm, img_cm
+
+    # 7. a small volume: plain versions on the CPU vs kernels on the card
+    small3 = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64],
+                           (144, 96, 40)).sum(axis=3)
+    cfg3 = SegmentationConfig(kmeans_iters=20)
+    kw3 = dict(max_cells=64, tile_x=48, margin=32, tile_cap=64, bf16=True)
+    seg_c, n_c3, _ = segment3d.segment_3d_tiled(torch.from_numpy(small3),
+                                                cfg3, **kw3)
+    seg_g, n_g3, _ = segment3d.segment_3d_tiled(
+        torch.from_numpy(small3).to(dev), cfg3, **kw3)
+    agree3 = float((seg_c == seg_g.cpu()).float().mean())
+    print(f"phase 7 144x96x40 cpu vs gpu: n_cells {n_c3} / {n_g3}, "
+          f"segmentation agreement {agree3:.6f}")
+    if n_c3 != n_g3 or agree3 < 0.9999:
+        raise AssertionError("144x96x40 volume: the card disagrees with "
+                             "the CPU")
+
+    # 8. the 3D volume path at full size
+    del vol
+    r3 = _volume_pass(torch, dev, spec, lut_dev, clf, cfg, TILED_3D,
+                      MAX_CELLS_3D)
+    launches3 = r3["launches"]
+    print(f"phase 8 stages (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r3["stages"].items())
+        + f"; total {r3['total']:.2f} s; peak memory {r3['peak_gib']:.2f} "
+        f"GiB; launches {launches3}")
+    missing = [k for k in PATH_3D if launches3[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the 3D path: "
+                             f"{missing}")
+    n3, matched3, correct3 = r3["n_cells"], r3["matched"], r3["correct"]
+    acc3 = correct3 / max(matched3, 1)
+    print(f"phase 8 volume {SHAPE_3D}: n_cells {n3} (planted "
+          f"{spec.n_cells}), matched {matched3}, accuracy {acc3:.4f} "
+          f"({correct3}/{matched3})")
+    if n3 != spec.n_cells or matched3 < 9300 or acc3 < 0.99:
+        raise AssertionError("3D path: n_cells != 9408, or accuracy below "
+                             "0.99, or fewer than 9300 matched cells")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": launches[k], **report[k]}
-        for k in ("nlm", "lpcv2d", "label_stats", "label_lookup")]}))
+         "replaces": REPLACES[k],
+         "launches": launches.get(k, 0) * (k in PATH_2D)
+         + launches3[k] * (k in PATH_3D),
+         "launches_by_path": {"fov_step": launches[k] * (k in PATH_2D),
+                              "volume_3d": launches3[k] * (k in PATH_3D)},
+         **report[k]}
+        for k in ("nlm", "lpcv2d", "label_stats", "label_lookup",
+                  "stats_cm", "lpcv3d")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 hiprfish_tpu/config.py that the slice reads).
 
 ``SEVEN_BIT`` is the 4-laser, 63-channel layout and ``SegmentationConfig``
-holds the segmentation parameters ``pipeline/fused.py::fov_step`` reads,
-with the reference's defaults. Tests hold both equal to the reference's.
+holds the segmentation parameters ``pipeline/fused.py::fov_step`` and
+``pipeline/segment3d.py`` read, with the reference's defaults. Tests hold
+both equal to the reference's.
 """
 
 from __future__ import annotations
@@ -52,9 +53,11 @@ SEVEN_BIT = ChannelLayout(
 class SegmentationConfig:
     """Parameters of the LP-CV segmentation in fov_step."""
 
-    # line-profile stencil
+    # line-profile stencil; theta_range is 3D only (orientations =
+    # (theta_range - 1) * phi_range)
     patch_size: int = 11
     phi_range: int = 9
+    theta_range: int = 9
     # registration: integer shift clamp, and the centred crop the FFT
     # correlation runs on (0 correlates the full frame)
     max_shift: int = 15

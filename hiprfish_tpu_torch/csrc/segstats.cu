@@ -23,6 +23,24 @@
 // order. Cells are ~200 px with raster-local ids, so a warp-level
 // pre-reduction of equal neighbouring ids is the next step.
 //
+// hf_stats_cm replaces hiprfish_tpu/ops/segstats_pallas.py::stats_cm_pallas
+// (body _stats_cm_kernel), the streamed 3D measurement's per-label
+// [count, C channel sums] of a CHANNELS-MAJOR (C, n) f32 or bf16 image into
+// a zeroed (num_segments, 1 + C) float32 table. Ids outside
+// [1, num_segments) add nothing (label 0 is background; the reference's
+// window drops ids past the table). Bound on the H100: HBM reads of the
+// image, 1 GB per (63, 2, 2020, 2020) bf16 z-chunk, of which only labelled
+// pixels' sectors are read. Design: a warp takes 32 consecutive pixels and
+// skips them at once when all are background; a channel row c*n + p is
+// contiguous over the lanes, so each lane reads its label once and loops
+// over the channels with coalesced reads. Neighbouring voxels almost always
+// share a label, so the lanes first find the runs of equal ids (ballot of
+// run heads), sum each channel over its run with a segmented shuffle scan,
+// and only the run's last lane issues the atomicAdd: one atomic per run
+// and channel instead of one per voxel and channel. Counts are integers
+// (exact below 2^24); sums round in a run-dependent order. Offsets are
+// 64-bit (c * n passes 2^31 once a z-chunk holds more than 4 planes).
+//
 // hf_label_lookup replaces hiprfish_tpu/ops/segstats_pallas.py::
 // lookup_pallas (body _lookup_kernel): out[p] = table[clip(l, 0, n - 1)] as
 // float32, and 0.0 where l <= 0 (the windowed one-hot holds only positive
@@ -109,6 +127,47 @@ __global__ void label_stats_kernel(
   }
 }
 
+template <bool BF16>
+__global__ void stats_cm_kernel(const int* __restrict__ labels,
+                                const void* __restrict__ image,
+                                float* __restrict__ acc, long long n,
+                                int nchan, int num_segments) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = (gridDim.x * (long long)blockDim.x) >> 5;
+  const long long ncols = nchan + 1;
+  for (long long base = warp * 32; base < n; base += nwarps * 32) {
+    const long long p = base + lane;
+    int id = 0;
+    if (p < n) {
+      const int l = __ldg(labels + p);
+      id = (l > 0 && l < num_segments) ? l : 0;
+    }
+    if (__ballot_sync(kFull, id != 0) == 0) continue;  // all background
+    // runs of equal ids over consecutive lanes: start = the run's first
+    // lane (the highest head at or below this lane), tail = its last lane
+    const int prev = __shfl_up_sync(kFull, id, 1);
+    const int next = __shfl_down_sync(kFull, id, 1);
+    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != id);
+    const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
+    const bool issue = id != 0 && (lane == 31 || next != id);
+    float* row = acc + id * ncols;
+    if (issue) atomicAdd(row, (float)(lane - start + 1));
+#pragma unroll 4
+    for (int c = 0; c < nchan; ++c) {
+      float v = id != 0 ? load_px<BF16>(image, c * n + p) : 0.f;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float o = __shfl_up_sync(kFull, v, d);
+        if (lane - d >= start) v += o;
+      }
+      if (issue) atomicAdd(row + 1 + c, v);
+    }
+  }
+}
+
 __global__ void label_lookup_kernel(const int* __restrict__ labels,
                                     const float* __restrict__ table,
                                     float* __restrict__ out, long long n,
@@ -145,6 +204,21 @@ HF_EXPORT int hf_label_stats(const int* labels, const void* image,
     label_stats_kernel<false><<<grid, threads, 0, stream>>>(
         labels, image, aux, mask, acc, n, h, w, nchan, num_segments,
         aux_classes, moments, has_mask, ncols);
+  }
+  return (int)cudaGetLastError();
+}
+
+HF_EXPORT int hf_stats_cm(const int* labels, const void* image,
+                          int image_is_bf16, float* acc, long long n,
+                          int nchan, int num_segments, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned grid = grid_for(n, threads);
+  if (image_is_bf16) {
+    stats_cm_kernel<true><<<grid, threads, 0, stream>>>(
+        labels, image, acc, n, nchan, num_segments);
+  } else {
+    stats_cm_kernel<false><<<grid, threads, 0, stream>>>(
+        labels, image, acc, n, nchan, num_segments);
   }
   return (int)cudaGetLastError();
 }

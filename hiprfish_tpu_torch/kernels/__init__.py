@@ -126,7 +126,42 @@ def label_lookup(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return out
 
 
-KERNELS = (nlm, lpcv2d, label_stats, label_lookup)
+def stats_cm(labels: torch.Tensor, image: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+    """B5: (num_segments, 1 + C) f32 [count, channel sums] table of a
+    channels-major image (csrc/segstats.cu). ``labels`` (n,) int32,
+    ``image`` (C, n) f32 or bf16."""
+    _require(labels, "stats_cm labels", (torch.int32,), 1)
+    _require(image, "stats_cm image", (torch.float32, torch.bfloat16), 2)
+    if image.shape[1] != labels.shape[0]:
+        raise ValueError("stats_cm: image columns != labels size")
+    acc = torch.zeros((num_segments, 1 + image.shape[0]),
+                      dtype=torch.float32, device=labels.device)
+    lib = _build.load()
+    err = lib.hf_stats_cm(labels.data_ptr(), image.data_ptr(),
+                          int(image.dtype == torch.bfloat16), acc.data_ptr(),
+                          labels.shape[0], image.shape[0], num_segments,
+                          _stream(labels))
+    _build.check(lib, err, "stats_cm")
+    stats_cm.launches += 1
+    return acc
+
+
+def lpcv3d(vol: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """B6: 3D LP-CV of an (X, Z, Y) f32 volume at patch_size=11,
+    theta_range=9, phi_range=9 (csrc/lpcv3d.cu); ``bf16`` rounds the
+    samples to bf16 first."""
+    _require(vol, "lpcv3d vol", (torch.float32,), 3)
+    out = torch.empty_like(vol)
+    lib = _build.load()
+    err = lib.hf_lpcv3d(vol.data_ptr(), out.data_ptr(), *vol.shape, 11, 9, 9,
+                        int(bf16), _stream(vol))
+    _build.check(lib, err, "lpcv3d")
+    lpcv3d.launches += 1
+    return out
+
+
+KERNELS = (nlm, lpcv2d, label_stats, label_lookup, stats_cm, lpcv3d)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,10 +1,13 @@
 """Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes). Each
+source compiles to an object in its own nvcc process, all started together,
+and one more nvcc links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libhiprfish_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o X.o csrc/X.cu        # one per source
+    nvcc ... -shared -o libhiprfish_kernels.so *.o
 
 The library lands in ``build/torch_kernels/<hash>/`` at the repository
 root, where ``<hash>`` covers the sources and the flags, so an edited
@@ -28,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libhiprfish_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +49,10 @@ SIGNATURES = {
                        _I, _I, _P),
     # labels, table, out, n, num_segments, stream
     "hf_label_lookup": (_P, _P, _P, _L, _I, _P),
+    # labels, image, image_is_bf16, acc, n, nchan, num_segments, stream
+    "hf_stats_cm": (_P, _P, _I, _P, _L, _I, _I, _P),
+    # vol, out, nx, nz, ny, patch, theta, phi, bf16, stream
+    "hf_lpcv3d": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -90,15 +97,28 @@ def build() -> Path:
         return lib
     nvcc = nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(str(obj))
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = [(cmd, proc.communicate(), proc.returncode)
+            for cmd, proc in procs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+    if all(rc == 0 for _, _, rc in done):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        done.append((link, (proc.stdout, proc.stderr), proc.returncode))
+    for cmd, (out, err), rc in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(cmd)}\n"
+                               f"{out}\n{err}")
     os.replace(tmp, lib)
+    for obj in objs:
+        os.remove(obj)
     return lib
 
 

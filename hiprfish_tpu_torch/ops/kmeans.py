@@ -87,3 +87,11 @@ def brightest_cluster_mask(image: torch.Tensor, k: int = 2,
     value >= midpoint of the two highest centres."""
     centers = kmeans1d_centers(image, k, iters)
     return image >= (centers[-1] + centers[-2]) / 2.0
+
+
+def kmeans1d_centers_multi(values: torch.Tensor, ks, iters: int = 40,
+                           n_bins: int = 2048) -> tuple:
+    """Sorted centres for each k in ``ks`` over ONE shared histogram of the
+    values (the 3D engine's k=2 foreground and k=3 interior thresholds)."""
+    hist = _value_histogram(values, n_bins)
+    return tuple(_lloyd_from_histogram(*hist, k, iters) for k in ks)

@@ -52,3 +52,26 @@ def clamp_shift(shift: torch.Tensor, max_shift: float,
         return shift
     return torch.where(torch.abs(shift) > max_shift,
                        torch.zeros_like(shift), shift)
+
+
+def register_translation_3d(reference: torch.Tensor,
+                            moving: torch.Tensor) -> torch.Tensor:
+    """Integer 3D shift aligning ``moving`` to ``reference`` as a (3,)
+    float32 tensor: argmax of |ifftn| of the normalized cross-power
+    spectrum (first index on ties), wrapped to (-shape/2, shape/2]."""
+    f_ref = torch.fft.fftn(reference.to(torch.float32))
+    f_mov = torch.fft.fftn(moving.to(torch.float32))
+    cross = f_ref * torch.conj(f_mov)
+    cross = cross / torch.clamp(torch.abs(cross), min=1e-12)
+    cc_abs = torch.abs(torch.fft.ifftn(cross))
+    flat = torch.argmax(cc_abs.reshape(-1))
+    shape = torch.tensor(reference.shape, dtype=torch.int64,
+                         device=reference.device)
+    idx = []
+    for s in reversed(reference.shape):
+        idx.append(flat % s)
+        flat = flat // s
+    maxima = torch.stack(idx[::-1]).to(torch.float32)
+    shape = shape.to(torch.float32)
+    midpoints = torch.floor(shape / 2)
+    return torch.where(maxima > midpoints, maxima - shape, maxima)

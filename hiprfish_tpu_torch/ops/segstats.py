@@ -145,3 +145,39 @@ def label_lookup(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if labels.device.type == "cpu":
         return label_lookup_plain(labels, table)
     raise ValueError(f"label_lookup: unsupported device {labels.device}")
+
+
+def stats_cm_plain(labels: torch.Tensor, image: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Plain-torch twin of kernel B5: the (num_segments, 1 + C) f32
+    [count, channel sums] table from flat (n,) labels and a channels-major
+    (C, n) image; ids outside [1, num_segments) add nothing."""
+    ids = labels.to(torch.int64)
+    sel = torch.nonzero((ids > 0) & (ids < num_segments)).squeeze(1)
+    ids = ids[sel]
+    acc = torch.zeros((1 + image.shape[0], num_segments), dtype=torch.float32,
+                      device=labels.device)
+    acc[0].index_add_(0, ids, torch.ones(ids.shape, dtype=torch.float32,
+                                         device=labels.device))
+    acc[1:].index_add_(1, ids, image[:, sel].to(torch.float32))
+    return acc.T.contiguous()
+
+
+def stats_cm(labels: torch.Tensor, img_cm: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+    """Per-label [count, channel sums] of a channels-major image, the
+    streamed 3D measurement's reduction: kernel B5 on CUDA tensors, the
+    plain version on CPU tensors. ``labels`` any shape; ``img_cm`` (C,) +
+    labels.shape in f32 or bf16 (other dtypes go through f32). Returns the
+    (num_segments, 1 + C) f32 table, column 0 the count; unlike the
+    reference's banded window it cannot spill, so there is no spill
+    flag."""
+    flat = labels.reshape(-1).to(torch.int32).contiguous()
+    img = img_cm.reshape(img_cm.shape[0], flat.shape[0])
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        img = img.to(torch.float32)
+    if labels.device.type == "cuda":
+        return kernels.stats_cm(flat, img.contiguous(), num_segments)
+    if labels.device.type == "cpu":
+        return stats_cm_plain(flat, img, num_segments)
+    raise ValueError(f"stats_cm: unsupported device {labels.device}")

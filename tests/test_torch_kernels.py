@@ -19,6 +19,7 @@ import torch
 from hiprfish_tpu_torch import kernels
 from hiprfish_tpu_torch.kernels import _build
 from hiprfish_tpu_torch.ops import denoise, kmeans, line_profile, segstats
+from hiprfish_tpu_torch.pipeline import segment3d
 
 torch.set_num_threads(1)
 
@@ -65,6 +66,9 @@ def _labels(shape, seed=0):
     lambda t: kernels.label_stats(t.reshape(-1).to(torch.int32), None, None,
                                   None, 8, 0, False, *t.shape),
     lambda t: kernels.label_lookup(t.to(torch.int32), torch.ones(8)),
+    lambda t: kernels.stats_cm(t.reshape(-1).to(torch.int32),
+                               t.reshape(1, -1), 8),
+    lambda t: kernels.lpcv3d(t[None], True),
 ])
 def test_bindings_refuse_cpu_tensors(call):
     before = kernels.launch_counts()
@@ -78,6 +82,8 @@ def test_bindings_refuse_cpu_tensors(call):
     lambda t: line_profile.lp_cv_enhance_2d(t),
     lambda t: segstats.label_stats(t.to(torch.int32), None, 8),
     lambda t: segstats.label_lookup(t.to(torch.int32), torch.ones(8)),
+    lambda t: segstats.stats_cm(t.to(torch.int32), t[None], 8),
+    lambda t: line_profile.lp_cv_enhance_3d(t[None]),
 ])
 def test_wrappers_refuse_other_devices(call):
     with pytest.raises(ValueError, match="unsupported device"):
@@ -98,7 +104,8 @@ def test_build_dir_hashes_sources_and_flags(monkeypatch):
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
     assert {p.name for p in _build.sources()} >= {
-        "nlm.cu", "lpcv2d.cu", "segstats.cu"}
+        "nlm.cu", "lpcv2d.cu", "segstats.cu", "lpcv3d.cu",
+        "lpcv3d_tables.cuh"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.build_dir() != d
 
@@ -175,3 +182,71 @@ def test_brightest_cluster_mask_cuda_vs_cpu(cuda):
         # only pixels within that rounding of the threshold change side
         thr = (c_cpu[-1] + c_cpu[-2]) / 2
         assert float((img[differ] - thr).abs().max()) <= 1e-6 * float(thr)
+
+
+def _volume(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    xx, yy, zz = np.mgrid[:shape[0], :shape[1], :shape[2]].astype(np.float32)
+    return (0.5 + 0.3 * np.sin(xx / 5) * np.cos(yy / 4) * np.cos(zz / 3)
+            + 0.05 * rng.rand(*shape)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("shape", [(40, 24, 70), (17, 9, 33)])
+def test_lpcv3d_kernel_matches_plain(cuda, bf16, shape):
+    # (X, Z, Y): ragged against the 16 x 8 x 32 tile on every axis
+    vol = torch.from_numpy(_volume(shape, 1)).to(cuda)
+    out = line_profile.lp_cv_enhance_3d(vol, bf16=bf16, layout="xzy")
+    ref = line_profile.lp_cv_enhance_3d_plain(vol, bf16=bf16, layout="xzy")
+    # f32 summation order of the 72-orientation mean
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lpcv3d_kernel_xyz_layout(cuda):
+    vol = torch.from_numpy(_volume((20, 26, 12), 2)).to(cuda)
+    out = line_profile.lp_cv_enhance_3d(vol, layout="xyz")
+    ref = line_profile.lp_cv_enhance_3d_plain(vol, bf16=True, layout="xyz")
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_cm_kernel_matches_plain(cuda, dtype):
+    rng = np.random.RandomState(4)
+    lab = torch.from_numpy(np.stack([_labels((64, 96), s) for s in (0, 1)]))
+    lab[0, 0, :4] = torch.tensor([-1, 60, 47, 48])
+    lab = lab.to(cuda)
+    img = torch.from_numpy(rng.rand(9, 2, 64, 96).astype(np.float32)) \
+        .to(cuda).to(dtype)
+    out = kernels.stats_cm(lab.reshape(-1).to(torch.int32),
+                           img.reshape(9, -1), 48)
+    ref = segstats.stats_cm_plain(lab.reshape(-1), img.reshape(9, -1), 48)
+    torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_3d_tiled_cuda_vs_cpu(cuda):
+    # a small volume: plain versions on the CPU, kernels B3, B4, B6 on the
+    # card, both in the card's bf16 LP-CV mode
+    rng = np.random.RandomState(0)
+    vol = rng.rand(96, 64, 32).astype(np.float32) * 0.05
+    xx, yy, zz = np.mgrid[:96, :64, :32]
+    for cx in (16, 48, 80):
+        for cy in (16, 48):
+            r2 = ((xx - cx) / 7.0) ** 2 + ((yy - cy) / 5.0) ** 2 \
+                + ((zz - 16) / 6.0) ** 2
+            vol += np.where(r2 <= 1, 1.0 - 0.2 * np.sqrt(r2), 0.0) \
+                .astype(np.float32)
+    kw = dict(max_cells=64, tile_x=32, margin=24, tile_cap=64, bf16=True)
+    cpu, n_c, _ = segment3d.segment_3d_tiled(torch.from_numpy(vol), **kw)
+    kernels.reset_launches()
+    gpu, n_g, _ = segment3d.segment_3d_tiled(torch.from_numpy(vol).to(cuda),
+                                             **kw)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("label_stats", "label_lookup",
+                                       "lpcv3d"))
+    assert n_c == n_g >= 6
+    assert float((cpu == gpu.cpu()).float().mean()) >= 0.9999

@@ -1,10 +1,13 @@
-"""Where the time of the port's 7-bit fov_step goes, on one GPU.
+"""Where the time of the port's 7-bit fov_step, or of its 3D volume pass,
+goes on one GPU.
 
-    python tools/profile_torch_fov.py [--out PATH]
+    python tools/profile_torch_fov.py [--volume] [--out PATH]
 
 Runs hiprfish_tpu_torch.pipeline.fused.fov_step on the 2000^2 7-bit FOV
-(400 planted cells, the committed 127-code classifier, max_cells=8192)
-and reports:
+(400 planted cells, the committed 127-code classifier, max_cells=8192),
+or with --volume the 3D pass of chip_smoke.py phase 8 (tools/bench3d.py's
+2020 x 2020 x 170 volume from 8 tiles: stitch -> segment_3d_tiled ->
+streamed bf16 measurement -> classify), and reports:
 
   * per-stage time: every op the step calls is wrapped so that it
     synchronises the card before and after itself; the host clock between
@@ -15,8 +18,8 @@ and reports:
     idle share (1 - summed kernel time / wall time, against the profiled
     call's wall and against the unprofiled median).
 
-The FOV, classifier and cell capacity are chip_smoke.py's. Needs a CUDA
-device; imports neither jax nor the JAX package.
+The FOV, volume, classifier and cell capacities are chip_smoke.py's.
+Needs a CUDA device; imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -35,28 +38,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(
-        ROOT, "build", "profile_torch_fov.json"))
-    args = ap.parse_args()
-    sys.path.insert(0, ROOT)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("profile_torch_fov: needs a CUDA device", file=sys.stderr)
-        return 1
+def _fov_setup(torch, dev):
+    """(step, stages) of the 2D fov_step."""
     from chip_smoke import FIXTURE, MAX_CELLS
     from hiprfish_tpu_torch.config import SegmentationConfig
     from hiprfish_tpu_torch.models.artifacts import load_classifier
     from hiprfish_tpu_torch.pipeline import fused
     from hiprfish_tpu_torch.utils import synthetic
 
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     fov = synthetic.flagship_fov()
     clf = load_classifier(FIXTURE)
     arrays, static = fused.classifier_from_numpy(clf, dev)
@@ -66,17 +55,103 @@ def main() -> int:
     def step():
         return fused.fov_step(stack, arrays, cfg, MAX_CELLS, static)
 
+    stages = [
+        (fused.reg, "register_translation", "register: FFT shift"),
+        (fused.reg, "apply_shift_2d", "register: apply shift"),
+        (fused.dn, "denoise_nl_means", "NLM (kernel B1)"),
+        (fused.lp, "lp_cv_enhance_2d", "LP-CV (kernel B2)"),
+        (fused.km, "brightest_cluster_mask", "KMeans"),
+        (fused.morph, "binary_opening", "opening"),
+        (fused.morph, "binary_fill_holes", "fill holes"),
+        (fused.lab, "label", "CCL"),
+        (fused.segstats, "rank_labels", "rank"),
+        (fused.segstats, "label_stats", "label stats (kernel B3)"),
+        (fused.segstats, "label_lookup", "label lookup (kernel B4)"),
+        (fused.ws, "watershed", "watershed"),
+        (fused, "classify_capped", "classify"),
+    ]
+    return step, stages, 5
+
+
+def _volume_setup(torch, dev):
+    """(step, stages) of the 3D pass; the tiles are built once and kept."""
+    import chip_smoke as cs
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.pipeline import fused, segment3d
+    from hiprfish_tpu_torch.utils import synthetic, synthetic3d as s3
+
+    spec = s3.VolumeSpec(shape=cs.SHAPE_3D, spacing=(36, 36, 52), seed=5)
+    lut = np.stack([synthetic.barcode_spectrum(SEVEN_BIT, c)
+                    for c in range(1, 128)])
+    lut_dev = torch.from_numpy(lut.astype(np.float32)).to(dev)
+    tiles = cs._volume_tiles(torch, dev, spec, lut_dev)
+    arrays, static = fused.classifier_from_numpy(
+        load_classifier(cs.FIXTURE), dev)
+    cfg = SegmentationConfig()
+
+    def step():
+        return cs._volume_step(torch, [list(tiles)], spec, lut_dev, arrays,
+                               static, cfg, cs.TILED_3D, cs.MAX_CELLS_3D)
+
+    m = segment3d
+    stages = [
+        (m.reg, "register_translation_3d", "stitch: FFT shifts"),
+        (m.lp, "lp_cv_enhance_3d", "3D LP-CV (kernel B6)"),
+        (m.km, "kmeans1d_centers", "KMeans (bkg)"),
+        (m.km, "kmeans1d_centers_multi", "KMeans (fg, interior)"),
+        (m.morph, "binary_opening", "seeds: opening"),
+        (m.morph, "binary_fill_holes", "seeds: fill holes"),
+        (m.lab, "label", "tiles: CCL"),
+        (m.segstats, "rank_labels", "tiles: rank"),
+        (m.segstats, "label_stats", "label stats (kernel B3)"),
+        (m.segstats, "label_lookup", "label lookup (kernel B4)"),
+        (m.ws, "watershed", "tiles: watershed"),
+        (m, "_boundary_pair_codes", "merge: boundary pairs"),
+        (s3, "channel_chunk_cm", "measure: spectra generator"),
+        (m.segstats, "stats_cm", "measure: stats_cm (kernel B5)"),
+        (fused, "classify_device", "classify"),
+    ]
+    return step, stages, 3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--volume", action="store_true",
+                    help="profile the 3D volume pass instead of fov_step")
+    ap.add_argument("--out", default=None,
+                    help="JSON output (default build/profile_torch_fov.json"
+                    ", or build/profile_torch_volume.json with --volume)")
+    args = ap.parse_args()
+    out = args.out or os.path.join(
+        ROOT, "build", "profile_torch_volume.json" if args.volume
+        else "profile_torch_fov.json")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_fov: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    step, stages, reps = (_volume_setup if args.volume else _fov_setup)(
+        torch, dev)
+    what = "3D pass" if args.volume else "fov_step"
+
     step()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(5):
+    for _ in range(reps):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.median(walls))
 
-    # per-stage times: wrap the ops fused.py calls, syncing around each
+    # per-stage times: wrap the ops the step calls, syncing around each
     stage_ms = collections.defaultdict(float)
     stage_calls = collections.Counter()
     wrapped = []
@@ -97,21 +172,6 @@ def main() -> int:
         setattr(mod, name, timed)
         wrapped.append((mod, name, fn))
 
-    stages = [
-        (fused.reg, "register_translation", "register: FFT shift"),
-        (fused.reg, "apply_shift_2d", "register: apply shift"),
-        (fused.dn, "denoise_nl_means", "NLM (kernel B1)"),
-        (fused.lp, "lp_cv_enhance_2d", "LP-CV (kernel B2)"),
-        (fused.km, "brightest_cluster_mask", "KMeans"),
-        (fused.morph, "binary_opening", "opening"),
-        (fused.morph, "binary_fill_holes", "fill holes"),
-        (fused.lab, "label", "CCL"),
-        (fused.segstats, "rank_labels", "rank"),
-        (fused.segstats, "label_stats", "label stats (kernel B3)"),
-        (fused.segstats, "label_lookup", "label lookup (kernel B4)"),
-        (fused.ws, "watershed", "watershed"),
-        (fused, "classify_capped", "classify"),
-    ]
     for mod, name, label in stages:
         wrap(mod, name, label)
     try:
@@ -144,7 +204,8 @@ def main() -> int:
 
     result = {
         "card": card,
-        "wall_ms_median5": wall_ms,
+        "what": what,
+        "wall_ms_median": wall_ms,
         "wall_ms_all": walls,
         "synced_stages_total_ms": synced_ms,
         "stages_ms": dict(sorted(stage_ms.items(), key=lambda kv: -kv[1])),
@@ -159,21 +220,21 @@ def main() -> int:
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                         for n, ms, c in rows[:25]],
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(result, f, indent=1)
     print(f"card: {card}")
-    print(f"fov_step wall {wall_ms:.1f} ms (median of 5); with per-stage "
-          f"syncs {synced_ms:.1f} ms")
+    print(f"{what} wall {wall_ms:.1f} ms (median of {reps}); with "
+          f"per-stage syncs {synced_ms:.1f} ms")
     for k, v in result["stages_ms"].items():
-        print(f"  {k:28s} {v:8.2f} ms  x{stage_calls[k]}")
+        print(f"  {k:30s} {v:9.2f} ms  x{stage_calls[k]}")
     print(f"profiled call: wall {prof_wall_ms:.1f} ms, kernels "
           f"{device_ms:.1f} ms, idle share "
           f"{result['device_idle_share']:.3f} (vs the unprofiled wall "
           f"{result['device_idle_share_vs_unprofiled_wall']:.3f})")
-    for r in result["top_kernels"][:12]:
-        print(f"  {r['ms']:8.2f} ms x{r['count']:5d}  {r['name']}")
-    print(f"wrote {args.out}")
+    for r in result["top_kernels"][:15]:
+        print(f"  {r['ms']:9.2f} ms x{r['count']:6d}  {r['name']}")
+    print(f"wrote {out}")
     return 0
 
 
