@@ -36,7 +36,24 @@ non-zero and prints no result:
      (z_chunk=2, B5) -> classify; n_cells must be 9,408 and barcode
      accuracy >= 0.99 over >= 9,300 matched cells, and B3, B4, B5 and B6
      must all launch; print each stage's seconds (synchronised), the total
-     and the peak device memory.
+     and the peak device memory;
+  9. build the 10-bit E. coli FOV (bench.py's 10-bit configuration: 2000^2,
+     5 lasers, 95 channels, 400 planted cells) and hold B3 against its
+     plain twin at the 10-bit step's column set: the truth labels with
+     16384 segments, the bf16 (2000^2, 95) cube, an aux image in [0, 41),
+     moments and a 0/1 mask; counts, border, aux and mask columns exact,
+     channel sums within 2^-16 relative, moments within the f32 summation
+     bound stated below;
+ 10. run the port's fov_step_ecoli on a 256^2 10-bit FOV on the CPU (plain
+     versions) and on the card (kernels): equal n_cells and calls,
+     segmentation agreement >= 0.999;
+ 11. run fov_step_ecoli on the 2000^2 10-bit FOV with the committed
+     1023-class classifier and max_cells=8192; B3 and B4 must launch;
+     barcode accuracy >= 0.99 over >= 380 matched cells; print ms/FOV
+     (median of 5 synchronised calls after the counted one);
+ 12. run the host engine once on the same FOV (segment2d.segment_ecoli ->
+     measure.measure_fov -> the 132-d features -> fused.classify_device):
+     the same accuracy bar; print each stage's seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. The script imports neither jax
@@ -53,10 +70,13 @@ import time
 
 import numpy as np
 
-# the committed 127-code classifier and the flagship step's cell capacity;
-# the FOV itself is hiprfish_tpu_torch.utils.synthetic.flagship_fov
+# the committed 127-code and 1023-class classifiers and the 2D steps' cell
+# capacity; the FOVs are hiprfish_tpu_torch.utils.synthetic.flagship_fov
+# and ecoli_fov
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "fixtures", "torch_port_clf_7b_127x50.npz")
+FIXTURE_10B = os.path.join(os.path.dirname(FIXTURE),
+                           "torch_port_clf_10b_1023x200.npz")
 MAX_CELLS = 8192
 # kernel vs plain tolerances on the card (absolute unless EXACT_COLS
 # names the table's exact count columns; the sums are then relative)
@@ -104,6 +124,10 @@ SOURCES = {
 }
 PATH_2D = ("nlm", "lpcv2d", "label_stats", "label_lookup")
 PATH_3D = ("label_stats", "label_lookup", "stats_cm", "lpcv3d")
+PATH_ECOLI = ("label_stats", "label_lookup")
+# the 10-bit step's erosion-depth histogram has max_erosion_iters + 1
+# classes
+AUX_CLASSES_10B = 41
 # the 3D volume of tools/bench3d.py and its segmentation settings
 SHAPE_3D = (2020, 2020, 170)
 MAX_CELLS_3D = 16384
@@ -345,6 +369,27 @@ def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
             "launches": launches, "peak_gib": peak}
 
 
+def _agree_10b(torch, out_k, out_p, nchan: int, naux: int):
+    """B3 at the 10-bit column set [count, border, 5 moments, nchan sums,
+    naux histogram, mask count]: (max abs error, moment tolerance, ok).
+
+    Counts, border, histogram and mask columns are integers below 2^24 and
+    must be equal. Channel sums must be within 2^-16 relative. Moments are
+    sums of up to n values of r^2 ~ 4e6 per label; the kernel and the plain
+    twin (index_add_) both add in the card's atomic run order, and any two
+    orders of n f32 terms differ by at most 2 (n - 1) 2^-24 relative to the
+    sum of their magnitudes (non-negative here, so to the sum itself)."""
+    exact = [0, 1] + list(range(7 + nchan, 7 + nchan + naux + 1))
+    rel = ((out_k - out_p).abs() / out_p.abs().clamp(min=1.0))
+    err = float((out_k - out_p).abs().max())
+    n_max = float(out_p[:, 0].max())
+    mom_tol = 2.0 * max(n_max - 1.0, 1.0) * 2.0 ** -24
+    ok = (bool(torch.equal(out_k[:, exact], out_p[:, exact]))
+          and float(rel[:, 2:7].max()) <= mom_tol
+          and float(rel[:, 7:7 + nchan].max()) <= 2.0 ** -16)
+    return err, mom_tol, ok
+
+
 def _smooth_image(shape, seed: int):
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[:shape[0], :shape[1]].astype(np.float32)
@@ -491,7 +536,9 @@ def main() -> int:
           f"(median of 5; all {[round(t, 1) for t in times]})")
     if total < 380 or acc < 0.99:
         raise AssertionError("accuracy below 0.99 or fewer than 380 cells")
-
+    # the 7-bit FOV's host and device arrays are not used again
+    del fov, stack, res, seg, labels, flat, cube_flat, stats_args, small, \
+        outs, cpu_r, gpu_r
 
     # 6. the 3D fixture; B6 and B5 against their plain twins
     from hiprfish_tpu_torch.pipeline import segment3d
@@ -559,13 +606,162 @@ def main() -> int:
         raise AssertionError("3D path: n_cells != 9408, or accuracy below "
                              "0.99, or fewer than 9300 matched cells")
 
+    # 9. the 10-bit FOV; B3 at the 10-bit step's column set
+    from hiprfish_tpu_torch.config import TEN_BIT
+    from hiprfish_tpu_torch.pipeline import fused_ecoli, measure, segment2d
+
+    del r3, spec, lut_dev
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    efov = synthetic.ecoli_fov()
+    ecodes = synthetic.ECOLI_CODES
+    esize = synthetic.ECOLI_SHAPE[0]
+    print(f"phase 9 fixture: {esize}^2 x {TEN_BIT.n_channels} ch, "
+          f"{len(ecodes)} cells, built in {time.time() - t0:.1f} s")
+    elabels = torch.from_numpy(efov["truth_labels"]).to(dev)
+    eflat = elabels.reshape(-1)
+    ecube = torch.cat([torch.from_numpy(a) for a in efov["stack"]], dim=2) \
+        .to(dev).to(torch.bfloat16).reshape(eflat.shape[0], -1)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    eaux = torch.randint(0, AUX_CLASSES_10B, eflat.shape, generator=gen,
+                         dtype=torch.int32).to(dev)
+    emask = (torch.rand(eflat.shape, generator=gen) > 0.3) \
+        .to(torch.float32).to(dev)
+    args10 = (eflat, ecube, eaux, emask, 2 * MAX_CELLS, AUX_CLASSES_10B,
+              True, esize, esize)
+    out_k = kernels.label_stats(*args10)
+    out_p = segstats.label_stats_table_plain(*args10)
+    torch.cuda.synchronize()
+    err10, mom_tol, ok10 = _agree_10b(torch, out_k, out_p,
+                                      TEN_BIT.n_channels, AUX_CLASSES_10B)
+    ms10 = _time_ms(torch, lambda: kernels.label_stats(*args10), 10)
+    plain_ms10 = _time_ms(
+        torch, lambda: segstats.label_stats_table_plain(*args10), 3)
+    print(f"phase 9 label_stats 10-bit columns ({out_k.shape[1]} cols x "
+          f"{out_k.shape[0]} rows): max_abs_err {err10:.3e} (counts, "
+          f"border, aux, mask exact; sums tol 2^-16 rel; moments tol "
+          f"{mom_tol:.3e} rel) kernel {ms10:.3f} ms plain {plain_ms10:.3f} "
+          f"ms {'ok' if ok10 else 'FAIL'}")
+    if not ok10:
+        raise AssertionError("label_stats at the 10-bit column set: kernel "
+                             "disagrees with plain")
+    report["label_stats"]["ecoli_10b"] = {
+        "max_abs_err": err10, "ms": ms10, "plain_ms": plain_ms10}
+    del out_k, out_p, eaux, emask, ecube, eflat, elabels, args10
+
+    # 10. a small 10-bit FOV: plain versions on the CPU vs kernels on the
+    # card
+    clf10 = load_classifier(FIXTURE_10B)
+    small10 = synthetic.make_fov(
+        TEN_BIT, [(i * 37) % 1023 + 1 for i in range(16)], shape=(256, 256),
+        seed=2, laser_shifts=synthetic.ECOLI_SHIFTS,
+        cell_axes=synthetic.ECOLI_CELL_AXES)
+    outs10 = []
+    for d in (torch.device("cpu"), dev):
+        arr, st10 = fused.classifier_from_numpy(clf10, d)
+        st = tuple(torch.from_numpy(a).to(d) for a in small10["stack"])
+        outs10.append(fused_ecoli.fov_step_ecoli(st, arr, cfg, 256, st10))
+    cpu_e, gpu_e = outs10
+    n_ce, n_ge = int(cpu_e.n_cells), int(gpu_e.n_cells)
+    agree_e = float((cpu_e.segmentation
+                     == gpu_e.segmentation.cpu()).float().mean())
+    v = cpu_e.valid
+    codes_eq_e = bool(torch.equal(cpu_e.code_idx[v], gpu_e.code_idx.cpu()[v]))
+    print(f"phase 10 256^2 10-bit cpu vs gpu: n_cells {n_ce} / {n_ge}, "
+          f"segmentation agreement {agree_e:.6f}, code_idx equal "
+          f"{codes_eq_e}")
+    if n_ce != n_ge or not codes_eq_e or agree_e < 0.999:
+        raise AssertionError("256^2 10-bit FOV: the card disagrees with the "
+                             "CPU")
+
+    # 11. the 10-bit step at full size
+    arrays10, static10 = fused.classifier_from_numpy(clf10, dev)
+    codebook10 = list(clf10.codebook)
+    estack = tuple(torch.from_numpy(a).to(dev) for a in efov["stack"])
+    etruth = efov["truth_labels"]
+    del efov
+    torch.cuda.synchronize()
+    estep = lambda: fused_ecoli.fov_step_ecoli(  # noqa: E731
+        estack, arrays10, cfg, MAX_CELLS, static10)
+    kernels.reset_launches()
+    t0 = time.time()
+    eres = estep()
+    torch.cuda.synchronize()
+    efirst_s = time.time() - t0
+    launches10 = kernels.launch_counts()
+    print(f"phase 11 first call {efirst_s:.2f} s, launches {launches10}")
+    missing = [k for k in PATH_ECOLI if launches10[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by fov_step_ecoli: "
+                             f"{missing}")
+    eseg = eres.segmentation.cpu().numpy()
+    en_found = int(eres.n_cells)
+    if eseg.shape != (esize, esize) or not bool(torch.isfinite(
+            eres.avgint).all()):
+        raise AssertionError("fov_step_ecoli output malformed")
+    ecorrect, etotal = _barcode_accuracy(
+        eseg, etruth, eres.code_idx.cpu().numpy(), ecodes, codebook10,
+        TEN_BIT, en_found, MAX_CELLS)
+    eacc = ecorrect / max(etotal, 1)
+    etimes = []
+    for _ in range(5):
+        t0 = time.time()
+        estep()
+        torch.cuda.synchronize()
+        etimes.append((time.time() - t0) * 1000)
+    ems = float(np.median(etimes))
+    print(f"phase 11 fov_step_ecoli {esize}^2: n_cells {en_found}, matched "
+          f"{etotal}, accuracy {eacc:.4f} ({ecorrect}/{etotal}), "
+          f"{ems:.1f} ms/FOV (median of 5; all "
+          f"{[round(t, 1) for t in etimes]})")
+    if etotal < 380 or eacc < 0.99:
+        raise AssertionError("10-bit step: accuracy below 0.99 or fewer "
+                             "than 380 cells")
+    del eres, eseg
+
+    # 12. the host engine once at full size
+    hstages = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hres = segment2d.segment_ecoli(estack, cfg, MAX_CELLS)
+    torch.cuda.synchronize()
+    hstages["segment_ecoli"] = time.time() - t0
+    t0 = time.time()
+    _, hnorm = measure.measure_fov(hres.segmentation, hres.registered,
+                                   hres.n_cells, MAX_CELLS)
+    hstages["measure_fov"] = time.time() - t0
+    t0 = time.time()
+    hfeats = fused_ecoli.violet_features(torch.from_numpy(hnorm).to(dev),
+                                         static10[1])
+    hpred, _ = fused.classify_device(
+        hfeats, arrays10["check_heads"], static10[6],
+        arrays10.get("scaler_mean"), arrays10.get("scaler_scale"),
+        arrays10["train_features"], arrays10["train_labels"],
+        *static10[:6])
+    hpred = np.concatenate([[0], hpred.cpu().numpy()])
+    hstages["classify"] = time.time() - t0
+    hn = int(hres.n_cells)
+    hcorrect, htotal = _barcode_accuracy(
+        hres.segmentation.cpu().numpy(), etruth, hpred, ecodes, codebook10,
+        TEN_BIT, hn, MAX_CELLS)
+    hacc = hcorrect / max(htotal, 1)
+    print(f"phase 12 host engine {esize}^2: n_cells {hn}, matched {htotal}, "
+          f"accuracy {hacc:.4f} ({hcorrect}/{htotal}); stages (s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in hstages.items())
+          + f"; total {sum(hstages.values()):.2f} s")
+    if htotal < 380 or hacc < 0.99:
+        raise AssertionError("10-bit host engine: accuracy below 0.99 or "
+                             "fewer than 380 cells")
+
+    by_path = {"fov_step": (launches, PATH_2D),
+               "volume_3d": (launches3, PATH_3D),
+               "fov_step_ecoli": (launches10, PATH_ECOLI)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k],
-         "launches": launches.get(k, 0) * (k in PATH_2D)
-         + launches3[k] * (k in PATH_3D),
-         "launches_by_path": {"fov_step": launches[k] * (k in PATH_2D),
-                              "volume_3d": launches3[k] * (k in PATH_3D)},
+         "launches": sum(c[k] * (k in p) for c, p in by_path.values()),
+         "launches_by_path": {name: c[k] * (k in p)
+                              for name, (c, p) in by_path.items()},
          **report[k]}
         for k in ("nlm", "lpcv2d", "label_stats", "label_lookup",
                   "stats_cm", "lpcv3d")]}))

@@ -1,10 +1,11 @@
-"""Configuration of the port's 7-bit slice (a copy of the parts of
-hiprfish_tpu/config.py that the slice reads).
+"""Configuration of the port (a copy of the parts of hiprfish_tpu/config.py
+that its slices read).
 
-``SEVEN_BIT`` is the 4-laser, 63-channel layout and ``SegmentationConfig``
-holds the segmentation parameters ``pipeline/fused.py::fov_step`` and
-``pipeline/segment3d.py`` read, with the reference's defaults. Tests hold
-both equal to the reference's.
+``SEVEN_BIT`` is the 4-laser, 63-channel layout, ``TEN_BIT`` the 5-laser,
+95-channel one, and ``SegmentationConfig`` holds the segmentation
+parameters ``pipeline/fused.py``, ``pipeline/fused_ecoli.py``,
+``pipeline/segment2d.py`` and ``pipeline/segment3d.py`` read, with the
+reference's defaults. Tests hold all three equal to the reference's.
 """
 
 from __future__ import annotations
@@ -35,6 +36,22 @@ class ChannelLayout:
         return format(enc, "0{}b".format(self.n_bits))
 
 
+# 5 lasers: 405, 488, 514, 561, 633 nm; the sixth check group belongs to
+# the violet-derivative block, which has no channels of its own
+TEN_BIT = ChannelLayout(
+    n_channels=95,
+    block_bounds=(0, 32, 55, 75, 89, 95),
+    n_bits=10,
+    check_bit_groups=(
+        (1, 5, 6),          # c1: 405 block
+        (9, 2, 0),          # c2: 488 block
+        (9, 0, 2, 8, 7),    # c3: 514 block
+        (7, 8),             # c4: 561 block
+        (3, 4),             # c5: 633 block
+        (1,),               # c6: violet-derivative block
+    ),
+)
+
 # 4 lasers: 488, 514, 561, 633 nm
 SEVEN_BIT = ChannelLayout(
     n_channels=63,
@@ -51,7 +68,7 @@ SEVEN_BIT = ChannelLayout(
 
 @dataclasses.dataclass(frozen=True)
 class SegmentationConfig:
-    """Parameters of the LP-CV segmentation in fov_step."""
+    """Parameters of the LP-CV and erosion-seeded segmentations."""
 
     # line-profile stencil; theta_range is 3D only (orientations =
     # (theta_range - 1) * phi_range)
@@ -71,7 +88,17 @@ class SegmentationConfig:
     nlm_patch_size: int = 7
     nlm_patch_distance: int = 11
     kmeans_iters: int = 40
-    # size gates of seeds and cells
+    # E. coli erosion-seeded watershed: components below seed_area_max
+    # become seeds, seeds below seed_min_size and watershed regions below
+    # cell_min_size are dropped, cells keep a minor axis in [min, max], and
+    # the erosion loop runs at most max_erosion_iters rounds
+    seed_area_max: int = 600
+    seed_min_size: int = 10
+    cell_min_size: int = 100
+    minor_axis_min: float = 15.0
+    minor_axis_max: float = 35.0
+    max_erosion_iters: int = 40
+    # size gates of the LP-CV seeds and cells
     lp_seed_min_size: int = 10
     lp_cell_min_size: int = 60
     # caps of the fixpoint loops (watershed flood, label propagation) and

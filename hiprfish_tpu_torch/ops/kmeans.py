@@ -95,3 +95,11 @@ def kmeans1d_centers_multi(values: torch.Tensor, ks, iters: int = 40,
     values (the 3D engine's k=2 foreground and k=3 interior thresholds)."""
     hist = _value_histogram(values, n_bins)
     return tuple(_lloyd_from_histogram(*hist, k, iters) for k in ks)
+
+
+def brightest_cluster_masks(image: torch.Tensor, ks=(2, 3),
+                            iters: int = 40) -> tuple:
+    """brightest_cluster_mask for each k in ``ks``, sharing one histogram
+    (the E. coli engines' k=2 foreground and k=3 interior)."""
+    all_centers = kmeans1d_centers_multi(image, tuple(ks), iters)
+    return tuple(image >= (c[-1] + c[-2]) / 2.0 for c in all_centers)

@@ -1,5 +1,6 @@
-"""Connected-component labeling by iterative min-label propagation (torch
-port of hiprfish_tpu/ops/labeling.py).
+"""Connected-component labeling by iterative min-label propagation, and
+the label-table filters built on it (torch port of
+hiprfish_tpu/ops/labeling.py).
 
 Every fixpoint loop keeps the reference's cap and exit rule: stop when an
 iteration changed nothing or after ``max_iters`` iterations. The change
@@ -216,3 +217,54 @@ def label(mask: torch.Tensor, connectivity: int | None = None,
     lbl0 = torch.where(mask, lin, torch.full_like(lin, _INF))
     lbl = _min_flood(lbl0, mask, connectivity, max_iters, max_run)
     return torch.where(mask, lbl, torch.zeros_like(lbl))
+
+
+def _id_counts(labels: torch.Tensor):
+    """(flat ids clipped to [0, numel], per-id pixel counts): the
+    reference's scatter tables of labels.numel() + 1 entries."""
+    size = labels.numel()
+    flat = torch.clamp(labels.reshape(-1).to(torch.int64), 0, size)
+    return flat, torch.bincount(flat, minlength=size + 1)
+
+
+def relabel_sequential(labels: torch.Tensor):
+    """Remap positive labels to 1..n keeping their order (skimage
+    relabel_sequential). Returns (new_labels int32, n_labels int32)."""
+    size = labels.numel()
+    flat = labels.reshape(-1).to(torch.int64)
+    flat_c = torch.clamp(flat, 0, size)
+    presence = torch.zeros(size + 1, dtype=torch.int32, device=labels.device)
+    presence[flat_c] = 1
+    presence[0] = 0
+    newid = torch.cumsum(presence, dim=0, dtype=torch.int32)
+    out = newid[flat_c] * (flat > 0)
+    return out.reshape(labels.shape), newid[-1]
+
+
+def clear_border(labels: torch.Tensor) -> torch.Tensor:
+    """Zero every component touching the image border (skimage
+    clear_border)."""
+    size = labels.numel()
+    flat = torch.clamp(labels.reshape(-1).to(torch.int64), 0, size)
+    border = border_mask(labels.shape, labels.device).reshape(-1)
+    marked = torch.zeros(size + 1, dtype=torch.bool, device=labels.device)
+    marked[flat[border]] = True
+    marked[0] = False
+    drop = marked[flat].reshape(labels.shape)
+    return torch.where(drop, torch.zeros_like(labels), labels)
+
+
+def remove_small_objects(mask: torch.Tensor, min_size: int,
+                         connectivity: int | None = None) -> torch.Tensor:
+    """Drop connected components smaller than ``min_size`` from a boolean
+    mask (skimage remove_small_objects)."""
+    flat, counts = _id_counts(label(mask, connectivity))
+    return mask & (counts[flat] >= min_size).reshape(mask.shape)
+
+
+def remove_small_labels(labels: torch.Tensor, min_size: int) -> torch.Tensor:
+    """Zero label regions smaller than ``min_size``, keeping the remaining
+    ids (skimage remove_small_objects on a label image)."""
+    flat, counts = _id_counts(labels)
+    keep = (counts[flat] >= min_size).reshape(labels.shape)
+    return torch.where(keep, labels, torch.zeros_like(labels))

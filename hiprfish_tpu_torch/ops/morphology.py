@@ -1,11 +1,13 @@
-"""Binary morphology with the cross footprint and hole filling (torch port
-of hiprfish_tpu/ops/morphology.py, the parts the 7-bit step runs)."""
+"""Binary morphology with the cross footprint, hole filling and small-hole
+removal (torch port of hiprfish_tpu/ops/morphology.py, the parts the 2D and
+3D slices run)."""
 
 from __future__ import annotations
 
 import torch
 
-from hiprfish_tpu_torch.ops.labeling import border_mask, flood_reach, shifted
+from hiprfish_tpu_torch.ops.labeling import (_id_counts, border_mask,
+                                             flood_reach, label, shifted)
 
 
 def _cross_shifts(ndim: int):
@@ -49,3 +51,19 @@ def binary_fill_holes(mask: torch.Tensor, connectivity: int = 1,
     reach = flood_reach(border_mask(mask.shape, mask.device), comp,
                         connectivity, max_run=max_run)
     return m | (comp & ~reach)
+
+
+def remove_small_holes(mask: torch.Tensor, area_threshold: int = 64,
+                       connectivity: int = 1) -> torch.Tensor:
+    """Fill holes smaller than ``area_threshold`` (skimage
+    remove_small_holes): complement components with no border pixel."""
+    m = mask.to(torch.bool)
+    comp = ~m
+    lbl = label(comp, connectivity)
+    flat, counts = _id_counts(lbl)
+    touches = torch.zeros(counts.shape, dtype=torch.bool, device=mask.device)
+    touches[flat[border_mask(mask.shape, mask.device).reshape(-1)]] = True
+    touches[0] = True
+    small_hole = (~touches[flat] & (counts[flat] < area_threshold)) \
+        .reshape(mask.shape) & comp
+    return m | small_hole

@@ -1,5 +1,5 @@
-"""Per-label statistics, lookup and sequential ranking (torch port of
-hiprfish_tpu/ops/segstats.py).
+"""Per-label statistics, lookup, sequential ranking and small-hole removal
+(torch port of hiprfish_tpu/ops/segstats.py).
 
 ``label_stats`` wraps kernel B3 and ``label_lookup`` kernel B4
 (csrc/segstats.cu). The reference's banded one-hot matmuls, window spill
@@ -18,6 +18,8 @@ from typing import NamedTuple
 import torch
 
 from hiprfish_tpu_torch import kernels
+from hiprfish_tpu_torch.ops import labeling as lab
+from hiprfish_tpu_torch.ops import morphology as morph
 from hiprfish_tpu_torch.ops.labeling import _INF, _min_flood
 
 
@@ -145,6 +147,40 @@ def label_lookup(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if labels.device.type == "cpu":
         return label_lookup_plain(labels, table)
     raise ValueError(f"label_lookup: unsupported device {labels.device}")
+
+
+def remove_small_holes_fast(mask: torch.Tensor, area_threshold: int = 64,
+                            connectivity: int = 1,
+                            num_segments: int = 32768,
+                            max_iters: int = 512,
+                            flood_max_run: int | None = None,
+                            exact_fallback: bool = True) -> torch.Tensor:
+    """skimage remove_small_holes through one border flood, a CCL + rank
+    of the hole pixels only, a count pass (B3) and a lookup (B4).
+
+    The holes' scans are capped at max(8, 4 * sqrt(area_threshold)): a
+    longer hole only costs extra fixpoint rounds. With ``num_segments`` or
+    more holes the exact morphology.remove_small_holes runs, or, with
+    ``exact_fallback=False``, the mask comes back unchanged (the
+    reference's choice for callers whose hole count is bounded); the
+    branch reads the hole count back to the host."""
+    m = mask.to(torch.bool)
+    comp = ~m
+    reach = lab.flood_reach(lab.border_mask(mask.shape, mask.device), comp,
+                            connectivity, max_iters, flood_max_run)
+    holes = comp & ~reach
+    cap = max(8, 4 * int(float(area_threshold) ** 0.5))
+    seq, n = rank_labels(lab.label(holes, connectivity, max_iters, cap),
+                         connectivity, max_iters, cap)
+    if int(n) < num_segments:
+        seqc = torch.clamp(seq, max=num_segments - 1)
+        st = label_stats(seqc, None, num_segments)
+        hole_tbl = (st.counts < area_threshold).to(torch.float32)
+        hole = label_lookup(seqc, hole_tbl) > 0.5
+        return m | (hole & holes)
+    if exact_fallback:
+        return morph.remove_small_holes(m, area_threshold, connectivity)
+    return m
 
 
 def stats_cm_plain(labels: torch.Tensor, image: torch.Tensor,

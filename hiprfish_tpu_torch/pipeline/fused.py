@@ -156,6 +156,19 @@ def classify_capped(spectra_rows, n_cells, cap, *clf_args):
     return out_ci, out_mp
 
 
+def _scatter_last(out: torch.Tensor, remap: torch.Tensor,
+                  keep: torch.Tensor, rows: torch.Tensor) -> None:
+    """out[remap[i]] = rows[i] for every kept id i, in place; row 0 stays
+    zero. Ids capped at out.shape[0] - 1 collide there, and the last one
+    wins, as in the reference's in-order scatter."""
+    kept = torch.nonzero(keep).squeeze(1)
+    dest = remap[kept]
+    last = torch.ones_like(dest, dtype=torch.bool)
+    last[:-1] = dest[1:] != dest[:-1]
+    out[dest[last].to(torch.int64)] = rows[kept[last]]
+    out[0] = 0.0
+
+
 def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
              clf_static, denoise: bool = True,
              classify_cap: int = 2048) -> FovResult:
@@ -185,14 +198,7 @@ def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
     means = stats.sums / torch.clamp(stats.counts, min=1.0)[:, None]
     avgint = torch.zeros((max_cells, means.shape[1]), dtype=torch.float32,
                          device=means.device)
-    # ids capped at max_cells - 1 collide there; the last one wins, as in
-    # the reference's in-order scatter
-    kept = torch.nonzero(keep).squeeze(1)
-    dest = remap[kept]
-    last = torch.ones_like(dest, dtype=torch.bool)
-    last[:-1] = dest[1:] != dest[:-1]
-    avgint[dest[last].to(torch.int64)] = means[kept[last]]
-    avgint[0] = 0.0
+    _scatter_last(avgint, remap, keep, means)
     avgint_norm = avgint / torch.clamp(
         torch.max(avgint, dim=1, keepdim=True).values, min=1e-12)
     code_idx, max_prob = classify_capped(
@@ -216,7 +222,17 @@ def classifier_from_numpy(clf, device=None):
     ClassifierArrays, or the reference's SpectralClassifier, whose fields
     are numpy) into (arrays dict of tensors and CheckHead modules, static
     tuple) for fov_step — the counterpart of the reference's
-    classifier_to_device_args."""
+    classifier_to_device_args.
+
+    The check heads take their blocks zero-padded to one width, the widest
+    block's (for the 10-bit violet-derivative classifier 6 heads over
+    blocks of 32, 23, 20, 14, 6 and 31 columns, the last past
+    ``n_channels``: the derivative features)."""
+    widths = {np.asarray(p["w1"]).shape[0] for p in clf.check_params}
+    if len(widths) != 1 or max(hi - lo for lo, hi in clf.check_blocks) \
+            > min(widths):
+        raise ValueError("classifier_from_numpy: check heads must share "
+                         "one input width covering every check block")
     arrays = {
         "train_features": torch.as_tensor(
             np.asarray(clf.train_features, np.float32), device=device),

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hiprfish_tpu_torch.config import SEVEN_BIT, ChannelLayout
+from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT, ChannelLayout
 
 # The flagship FOV fov_step is run and timed on: 2000^2, 7-bit, 400 planted
 # cells cycling through the 127 codes, with the per-laser shifts and cell
@@ -20,6 +20,15 @@ FLAGSHIP_SHAPE = (2000, 2000)
 FLAGSHIP_CODES = tuple(1 + (i % 127) for i in range(400))
 FLAGSHIP_SHIFTS = ((0, 0), (2, -1), (0, 3), (-2, 0))
 FLAGSHIP_CELL_AXES = (7.0, 12.0)
+
+# The 10-bit E. coli FOV fov_step_ecoli is run and timed on: bench.py's
+# 10-bit configuration, 2000^2, 400 planted cells taking every 37th of the
+# 1023 codes, five per-laser shifts, cell axes (9, 14) (minor axis ~18 px,
+# inside the shape gate's 15-35 px), seed 2.
+ECOLI_SHAPE = (2000, 2000)
+ECOLI_CODES = tuple((i * 37) % 1023 + 1 for i in range(400))
+ECOLI_SHIFTS = ((0, 0), (2, -1), (0, 3), (-2, 0), (1, 1))
+ECOLI_CELL_AXES = (9.0, 14.0)
 
 
 def fluorophore_spectra(layout: ChannelLayout,
@@ -120,3 +129,9 @@ def flagship_fov():
     return make_fov(SEVEN_BIT, list(FLAGSHIP_CODES), shape=FLAGSHIP_SHAPE,
                     seed=1, laser_shifts=FLAGSHIP_SHIFTS,
                     cell_axes=FLAGSHIP_CELL_AXES)
+
+
+def ecoli_fov():
+    """The 10-bit E. coli FOV (see ECOLI_* above), seed 2."""
+    return make_fov(TEN_BIT, list(ECOLI_CODES), shape=ECOLI_SHAPE, seed=2,
+                    laser_shifts=ECOLI_SHIFTS, cell_axes=ECOLI_CELL_AXES)

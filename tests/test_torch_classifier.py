@@ -1,6 +1,7 @@
 """Port parity: block-cosine distances, check heads and the kNN vote vs the
-JAX package on the CPU, with the committed 127-code classifier fixture
-loaded once by the JAX loader and once by the port's jax-free loader."""
+JAX package on the CPU, with the committed 127-code 7-bit and 1023-class
+10-bit (violet-derivative) classifier fixtures loaded once by the JAX
+loader and once by the port's jax-free loader."""
 
 import os
 
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from hiprfish_tpu.config import SEVEN_BIT
+from hiprfish_tpu.config import SEVEN_BIT, TEN_BIT
 from hiprfish_tpu.models import metrics as jmetrics
 from hiprfish_tpu.models.artifacts import load_classifier as jload
 from hiprfish_tpu.models.classifier import _mlp_logit
@@ -24,6 +25,8 @@ torch.set_num_threads(1)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "torch_port_clf_7b_127x50.npz")
+FIXTURE_10B = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "torch_port_clf_10b_1023x200.npz")
 
 
 def _spectra(n, seed):
@@ -97,3 +100,90 @@ def test_classify_capped_matches_jax(n_cells, cap):
     np.testing.assert_allclose(mp_t.numpy(), np.asarray(mp_j),
                                rtol=1e-5, atol=0)
     assert (np.asarray(ci_j)[2:n_cells + 1] > 0).any()
+
+
+def _spectra_10b(n, seed):
+    """Noisy normalized 10-bit spectra with the violet derivative of the
+    first block appended (fov_step_ecoli's 126-column feature base), a
+    zero row and a zeroed 488 block."""
+    rng = np.random.RandomState(seed)
+    lut = synthetic.fluorophore_spectra(TEN_BIT)
+    rows = np.stack([synthetic.barcode_spectrum(TEN_BIT, 1 + (i * 37) % 1023,
+                                                lut) for i in range(n)])
+    rows = np.clip(rows * rng.uniform(0.7, 1.3, (n, 1))
+                   + rng.randn(n, 95) * 0.02, 0, None).astype(np.float32)
+    rows /= np.maximum(rows.max(axis=1, keepdims=True), 1e-12)
+    rows[0] = 0.0
+    rows[1, 32:55] = 0.0
+    return np.concatenate([rows, np.diff(rows[:, :32], axis=1)], axis=1)
+
+
+def test_port_loader_matches_jax_loader_10b():
+    a, b = tload(FIXTURE_10B), jload(FIXTURE_10B)
+    for f in ("layout_name", "n_channels", "blocks", "check_slice",
+              "codebook", "check_blocks", "n_neighbors", "temperature",
+              "violet_derivative"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert a.violet_derivative and len(a.codebook) == 1023
+    assert a.train_features.shape == (8184, 132)
+    assert [hi - lo for lo, hi in a.check_blocks] == [32, 23, 20, 14, 6, 31]
+    assert a.check_blocks[-1] == (95, 126) and a.check_slice == (126, 132)
+    np.testing.assert_array_equal(a.train_features, b.train_features)
+    np.testing.assert_array_equal(a.train_labels, b.train_labels)
+    for pa, pb in zip(a.check_params, b.check_params):
+        for k in ("w1", "b1", "w2", "b2"):
+            np.testing.assert_array_equal(pa[k], pb[k])
+
+
+def test_classifier_from_numpy_carries_10b_heads():
+    clf = tload(FIXTURE_10B)
+    arrays, static = tfused.classifier_from_numpy(clf)
+    heads = arrays["check_heads"]
+    assert len(heads) == 6 and {h.d_in for h in heads} == {32}
+    assert static[:4] == (1023, clf.blocks, clf.check_slice, 95)
+    assert static[6] == clf.check_blocks
+    # every head, on its zero-padded block (the derivative head on the
+    # unscaled derivative columns), equals the reference's MLP
+    x = _spectra_10b(24, 4)
+    for head, p, (lo, hi) in zip(heads, clf.check_params, clf.check_blocks):
+        xin = np.pad(x[:, lo:hi], ((0, 0), (0, 32 - (hi - lo))))
+        ref = np.asarray(_mlp_logit({k: jnp.asarray(v) for k, v in p.items()},
+                                    jnp.asarray(xin)))
+        np.testing.assert_allclose(head(torch.from_numpy(xin)).numpy(), ref,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_classifier_from_numpy_refuses_ragged_heads():
+    clf = tload(FIXTURE)
+    params = list(clf.check_params)
+    params[1] = {k: (v[:10] if k == "w1" else v) for k, v in params[1].items()}
+    clf.check_params = tuple(params)
+    with pytest.raises(ValueError, match="one input width"):
+        tfused.classifier_from_numpy(clf)
+
+
+@pytest.mark.parametrize("n_cells,cap", [(20, 32), (60, 32)])
+def test_classify_capped_matches_jax_10b(n_cells, cap):
+    ja, js = jfused.classifier_to_device_args(jload(FIXTURE_10B))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE_10B))
+    rows = _spectra_10b(64, 5)
+    rows[n_cells + 1:] = 0.0
+    (n_classes, blocks, check_slice, n_channels, k, temperature,
+     check_blocks) = js
+    ci_j, mp_j = jfused.classify_capped(
+        jnp.asarray(rows), jnp.int32(n_cells), cap, ja["check_params"],
+        check_blocks, None, None, ja["train_features"], ja["train_labels"],
+        n_classes, blocks, check_slice, n_channels, k, temperature)
+    ci_t, mp_t = tfused.classify_capped(
+        torch.from_numpy(rows), torch.tensor(n_cells), cap,
+        ta["check_heads"], ts[6], None, None, ta["train_features"],
+        ta["train_labels"], *ts[:6])
+    np.testing.assert_array_equal(ci_t.numpy(), np.asarray(ci_j))
+    np.testing.assert_allclose(mp_t.numpy(), np.asarray(mp_j),
+                               rtol=1e-5, atol=0)
+    # the clean rows' calls are their barcodes
+    codebook = tload(FIXTURE_10B).codebook
+    calls = [codebook[i] for i in ci_t.numpy()[2:n_cells + 1]]
+    truth = [TEN_BIT.code_str(1 + (i * 37) % 1023)
+             for i in range(2, n_cells + 1)]
+    assert np.mean([c == t for c, t in zip(calls, truth)]) >= 0.9

@@ -12,14 +12,20 @@ for a CPU tensor, refuses other devices, and the bindings refuse non-CUDA
 tensors before anything is built.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from hiprfish_tpu_torch import kernels
+from hiprfish_tpu_torch.config import TEN_BIT, SegmentationConfig
 from hiprfish_tpu_torch.kernels import _build
+from hiprfish_tpu_torch.models.artifacts import load_classifier
 from hiprfish_tpu_torch.ops import denoise, kmeans, line_profile, segstats
+from hiprfish_tpu_torch.pipeline import fused, fused_ecoli, segment2d
 from hiprfish_tpu_torch.pipeline import segment3d
+from hiprfish_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
 
@@ -250,3 +256,75 @@ def test_segment_3d_tiled_cuda_vs_cpu(cuda):
                                        "lpcv3d"))
     assert n_c == n_g >= 6
     assert float((cpu == gpu.cpu()).float().mean()) >= 0.9999
+
+
+def _ecoli_fov_192():
+    """The 192^2 10-bit FOV of the JAX package's fused-vs-host test."""
+    return synthetic.make_fov(
+        TEN_BIT, [5, 37, 515, 1023, 96, 640, 17, 260, 770], shape=(192, 192),
+        seed=1, laser_shifts=[(0, 0), (1, -1), (0, 1), (-1, 0), (1, 1)],
+        cell_axes=(9.0, 14.0))
+
+
+@pytest.mark.cuda
+def test_label_stats_kernel_ecoli_columns(cuda):
+    # the 10-bit step's measurement pass: 95 bf16 channels, moments, a
+    # 41-class aux histogram and a mask, on planted cells at 192^2
+    fov = _ecoli_fov_192()
+    rng = np.random.RandomState(5)
+    lab = torch.from_numpy(fov["truth_labels"]).to(cuda).reshape(-1)
+    img = torch.from_numpy(np.concatenate(fov["stack"], axis=2)).to(cuda) \
+        .to(torch.bfloat16).reshape(lab.shape[0], 95)
+    aux = torch.from_numpy(rng.randint(0, 41, lab.shape[0])
+                           .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(lab.shape[0]) > 0.3)
+                            .astype(np.float32)).to(cuda)
+    args = (lab, img, aux, mask, 64, 41, True, 192, 192)
+    out = kernels.label_stats(*args)
+    ref = segstats.label_stats_table_plain(*args)
+    exact = [0, 1] + list(range(7 + 95, 7 + 95 + 41 + 1))
+    torch.testing.assert_close(out[:, exact], ref[:, exact], rtol=0, atol=0)
+    torch.testing.assert_close(out[:, 7:7 + 95], ref[:, 7:7 + 95],
+                               rtol=2.0 ** -16, atol=1e-4)
+    # moments: any two f32 summation orders of n terms within
+    # 2 (n - 1) 2^-24 of the sum
+    n_max = float(ref[:, 0].max())
+    torch.testing.assert_close(out[:, 2:7], ref[:, 2:7],
+                               rtol=2 * n_max * 2.0 ** -24, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fov_step_ecoli_cuda_vs_cpu(cuda):
+    # the 10-bit step: plain versions on the CPU, kernels B3, B4 on the card
+    fov = _ecoli_fov_192()
+    clf = load_classifier(os.path.join(os.path.dirname(__file__), "fixtures",
+                                       "torch_port_clf_10b_1023x200.npz"))
+    outs = []
+    kernels.reset_launches()
+    for d in (torch.device("cpu"), cuda):
+        arrays, static = fused.classifier_from_numpy(clf, d)
+        stack = tuple(torch.from_numpy(a).to(d) for a in fov["stack"])
+        outs.append(fused_ecoli.fov_step_ecoli(stack, arrays,
+                                               SegmentationConfig(), 64,
+                                               static))
+    counts = kernels.launch_counts()
+    assert counts["label_stats"] >= 3 and counts["label_lookup"] >= 3
+    cpu, gpu = outs
+    assert int(cpu.n_cells) == int(gpu.n_cells) == 9
+    agree = float((cpu.segmentation == gpu.segmentation.cpu()).float().mean())
+    assert agree >= 0.999
+    v = cpu.valid
+    assert torch.equal(cpu.code_idx[v], gpu.code_idx.cpu()[v])
+
+
+@pytest.mark.cuda
+def test_segment_ecoli_cuda_vs_cpu(cuda):
+    fov = _ecoli_fov_192()
+    cpu = segment2d.segment_ecoli(
+        [torch.from_numpy(a) for a in fov["stack"]], SegmentationConfig(), 64)
+    gpu = segment2d.segment_ecoli(
+        [torch.from_numpy(a).to(cuda) for a in fov["stack"]],
+        SegmentationConfig(), 64)
+    assert int(cpu.n_cells) == int(gpu.n_cells) == 9
+    agree = float((cpu.segmentation == gpu.segmentation.cpu()).float().mean())
+    assert agree >= 0.999

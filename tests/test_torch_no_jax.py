@@ -1,6 +1,7 @@
-"""The port never imports jax nor the JAX package: run its CPU slice in a
-subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
-(sys.modules[...] = None)."""
+"""The port never imports jax nor the JAX package: import every module of
+it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
+and measurement) in a subprocess where any ``import jax`` or ``import
+hiprfish_tpu`` raises (sys.modules[...] = None)."""
 
 import os
 import subprocess
@@ -8,7 +9,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = r"""
+PREAMBLE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["hiprfish_tpu"] = None
@@ -19,6 +20,9 @@ import hiprfish_tpu_torch
 for m in pkgutil.walk_packages(hiprfish_tpu_torch.__path__,
                                "hiprfish_tpu_torch."):
     importlib.import_module(m.name)
+"""
+
+SCRIPT = PREAMBLE + r"""
 from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
 from hiprfish_tpu_torch.utils import synthetic
 from hiprfish_tpu_torch.models.artifacts import load_classifier
@@ -36,11 +40,44 @@ print("cells", int(res.n_cells))
 """
 
 
-def test_port_slice_runs_without_jax():
-    fixture = os.path.join(ROOT, "tests", "fixtures",
-                           "torch_port_clf_7b_127x50.npz")
+SCRIPT_ECOLI = PREAMBLE + r"""
+from hiprfish_tpu_torch.config import TEN_BIT, SegmentationConfig
+from hiprfish_tpu_torch.utils import synthetic
+from hiprfish_tpu_torch.models.artifacts import load_classifier
+from hiprfish_tpu_torch.pipeline import fused, fused_ecoli, measure, segment2d
+fov = synthetic.make_fov(TEN_BIT, [5, 37, 515, 1023, 96, 640, 17, 260, 770],
+                         shape=(192, 192), seed=1,
+                         laser_shifts=synthetic.ECOLI_SHIFTS,
+                         cell_axes=synthetic.ECOLI_CELL_AXES)
+stack = tuple(torch.from_numpy(a) for a in fov["stack"])
+arrays, static = fused.classifier_from_numpy(load_classifier(sys.argv[1]))
+res = fused_ecoli.fov_step_ecoli(stack, arrays, SegmentationConfig(), 64,
+                                 static)
+host = segment2d.segment_ecoli(stack, SegmentationConfig(), 64)
+avg, _ = measure.measure_fov(host.segmentation, host.registered,
+                             host.n_cells, 64)
+assert avg.shape == (int(host.n_cells), 95)
+assert not {"jax", "hiprfish_tpu"} & {m.split(".")[0] for m in sys.modules
+                                      if sys.modules[m] is not None}
+print("cells", int(res.n_cells), int(host.n_cells))
+"""
+
+
+def _run(script, fixture_name):
+    fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, fixture], env=env,
+    proc = subprocess.run([sys.executable, "-c", script, fixture], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split("cells")[-1]) >= 7
+    return proc.stdout.split("cells")[-1].split()
+
+
+def test_port_slice_runs_without_jax():
+    out = _run(SCRIPT, "torch_port_clf_7b_127x50.npz")
+    assert int(out[0]) >= 7
+
+
+def test_port_ecoli_slice_runs_without_jax():
+    out = _run(SCRIPT_ECOLI, "torch_port_clf_10b_1023x200.npz")
+    n_fused, n_host = (int(v) for v in out)
+    assert n_fused == n_host == 9

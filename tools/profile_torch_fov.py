@@ -1,18 +1,22 @@
-"""Where the time of the port's 7-bit fov_step, or of its 3D volume pass,
-goes on one GPU.
+"""Where the time of the port's 7-bit fov_step, of its 10-bit
+fov_step_ecoli, or of its 3D volume pass, goes on one GPU.
 
-    python tools/profile_torch_fov.py [--volume] [--out PATH]
+    python tools/profile_torch_fov.py [--ecoli | --volume] [--out PATH]
 
 Runs hiprfish_tpu_torch.pipeline.fused.fov_step on the 2000^2 7-bit FOV
-(400 planted cells, the committed 127-code classifier, max_cells=8192),
-or with --volume the 3D pass of chip_smoke.py phase 8 (tools/bench3d.py's
-2020 x 2020 x 170 volume from 8 tiles: stitch -> segment_3d_tiled ->
-streamed bf16 measurement -> classify), and reports:
+(400 planted cells, the committed 127-code classifier, max_cells=8192);
+with --ecoli fused_ecoli.fov_step_ecoli on the 2000^2 10-bit FOV of
+chip_smoke.py phase 11 (400 planted cells, the committed 1023-class
+classifier, max_cells=8192); or with --volume the 3D pass of
+chip_smoke.py phase 8 (tools/bench3d.py's 2020 x 2020 x 170 volume from 8
+tiles: stitch -> segment_3d_tiled -> streamed bf16 measurement ->
+classify), and reports:
 
   * per-stage time: every op the step calls is wrapped so that it
     synchronises the card before and after itself; the host clock between
     the two syncs is the stage's time (the syncs serialise the step, so the
-    stages add up to more than an unwrapped call);
+    stages add up to more than an unwrapped call). A wrapped op called
+    inside another wrapped op counts toward the outer one only;
   * the unwrapped step's wall time (median of 5) and, from one
     torch.profiler trace, the device time per kernel name and the device's
     idle share (1 - summed kernel time / wall time, against the profiled
@@ -73,6 +77,45 @@ def _fov_setup(torch, dev):
     return step, stages, 5
 
 
+def _ecoli_setup(torch, dev):
+    """(step, stages) of the 10-bit fov_step_ecoli."""
+    from chip_smoke import FIXTURE_10B, MAX_CELLS
+    from hiprfish_tpu_torch.config import SegmentationConfig
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.pipeline import fused, fused_ecoli
+    from hiprfish_tpu_torch.utils import synthetic
+
+    fov = synthetic.ecoli_fov()
+    arrays, static = fused.classifier_from_numpy(
+        load_classifier(FIXTURE_10B), dev)
+    stack = tuple(torch.from_numpy(a).to(dev) for a in fov["stack"])
+    del fov
+    cfg = SegmentationConfig()
+
+    def step():
+        return fused_ecoli.fov_step_ecoli(stack, arrays, cfg, MAX_CELLS,
+                                          static)
+
+    m = fused_ecoli
+    stages = [
+        (m.reg, "register_translation", "register: FFT shift"),
+        (m.reg, "apply_shift_2d", "register: apply shift"),
+        (m.km, "brightest_cluster_masks", "KMeans (fg + interior)"),
+        (m.segstats, "remove_small_holes_fast",
+         "small holes (flood, CCL, B3, B4)"),
+        (m.morph, "binary_opening", "opening"),
+        (m.morph, "binary_erosion", "erosion depth (39 erosions)"),
+        (m.lab, "label", "CCL"),
+        (m.segstats, "rank_labels", "rank"),
+        (m.segstats, "label_stats", "label stats (kernel B3)"),
+        (m.segstats, "label_lookup", "label lookup (kernel B4)"),
+        (m.ws, "watershed", "watershed"),
+        (m, "_erode_labels_twice", "double erosion"),
+        (m.fused, "classify_capped", "classify"),
+    ]
+    return step, stages, 5
+
+
 def _volume_setup(torch, dev):
     """(step, stages) of the 3D pass; the tiles are built once and kept."""
     import chip_smoke as cs
@@ -117,15 +160,19 @@ def _volume_setup(torch, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--volume", action="store_true",
-                    help="profile the 3D volume pass instead of fov_step")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--ecoli", action="store_true",
+                       help="profile the 10-bit fov_step_ecoli")
+    which.add_argument("--volume", action="store_true",
+                       help="profile the 3D volume pass")
     ap.add_argument("--out", default=None,
                     help="JSON output (default build/profile_torch_fov.json"
-                    ", or build/profile_torch_volume.json with --volume)")
+                    ", build/profile_torch_ecoli.json with --ecoli, "
+                    "build/profile_torch_volume.json with --volume)")
     args = ap.parse_args()
-    out = args.out or os.path.join(
-        ROOT, "build", "profile_torch_volume.json" if args.volume
-        else "profile_torch_fov.json")
+    kind = "volume" if args.volume else "ecoli" if args.ecoli else "fov"
+    out = args.out or os.path.join(ROOT, "build",
+                                   f"profile_torch_{kind}.json")
     sys.path.insert(0, ROOT)
     import torch
 
@@ -137,9 +184,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    step, stages, reps = (_volume_setup if args.volume else _fov_setup)(
-        torch, dev)
-    what = "3D pass" if args.volume else "fov_step"
+    setup = {"fov": _fov_setup, "ecoli": _ecoli_setup,
+             "volume": _volume_setup}[kind]
+    step, stages, reps = setup(torch, dev)
+    what = {"fov": "fov_step", "ecoli": "fov_step_ecoli",
+            "volume": "3D pass"}[kind]
 
     step()
     torch.cuda.synchronize()
@@ -155,16 +204,23 @@ def main() -> int:
     stage_ms = collections.defaultdict(float)
     stage_calls = collections.Counter()
     wrapped = []
+    depth = [0]
 
     def wrap(mod, name, label):
         fn = getattr(mod, name)
 
         @functools.wraps(fn)
         def timed(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
             stage_ms[label] += (time.perf_counter() - t0) * 1e3
             stage_calls[label] += 1
             return out
