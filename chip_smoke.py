@@ -8,12 +8,15 @@ non-zero and prints no result:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the six CUDA kernels from csrc/ (one nvcc per source, in
-     parallel) and print the build time;
+     parallel), print the build time and ptxas's registers and spills of
+     B1 and B6;
   3. run the 2D kernels against their plain-torch twins on the card at the
      main path's shapes (2000^2 images, the 2000^2 label image with the
      bf16 (2000, 2000, 63) cube and 16384 segments, a 16384-entry table),
-     and print the max error against the stated tolerance and both median
-     times;
+     and print the max error against the stated tolerance, both median
+     times, the kernel's bound (kernel_work) and its share of it, and the
+     time of one PyTorch call that computes the same function where there
+     is one (library_ms; timed here only, the port never calls it);
   4. run the port's fov_step on a 256^2 FOV on the CPU (plain versions) and
      on the card (kernels), and hold the two results together;
   5. run fov_step on the 2000^2 7-bit FOV (400 planted cells) with the
@@ -24,8 +27,11 @@ non-zero and prints no result:
   6. build the 3D fixture (tools/bench3d.py's 2020 x 2020 x 170 volume,
      9,408 planted cells, seed 5) on the card; hold B6 (3D LP-CV, bf16)
      against its plain twin on a 256 x 170 x 256 (X, Z, Y) sub-volume and
-     B5 (channels-major stats) against its plain twin on a bf16
-     (63, 2, 2020, 2020) slab with 16384 segments;
+     on the whole normalised 2020 x 170 x 2020 (X, Z, Y) volume, the shape
+     the 3D path gives it (the plain twin timed once there), and B5
+     (channels-major stats) against its plain twin on a bf16
+     (63, 2, 2020, 2020) slab with 16384 segments (with bounds and library
+     calls as in 3);
   7. run segment_3d_tiled on the 144 x 96 x 40 volume of the JAX package's
      tiled test on the CPU (plain versions) and on the card (kernels), both
      in bf16 LP-CV mode: equal n_cells, segmentation agreement >= 0.9999;
@@ -55,8 +61,9 @@ non-zero and prints no result:
      measure.measure_fov -> the 132-d features -> fused.classify_device):
      the same accuracy bar; print each stage's seconds.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. The script imports neither jax
+The line before the last is a JSON object with one entry per kernel (its
+launches on each path, errors, times, bound and library call); the last
+line is {"ok": true, "device": {...}}. The script imports neither jax
 nor the JAX package hiprfish_tpu.
 """
 
@@ -128,10 +135,61 @@ PATH_ECOLI = ("label_stats", "label_lookup")
 # the 10-bit step's erosion-depth histogram has max_erosion_iters + 1
 # classes
 AUX_CLASSES_10B = 41
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): f32
+# outside the tensor cores, and HBM3 bandwidth
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# operations per output element, each min, max, add, mul, compare, divide
+# and exp one op and an FMA two (the sources' notes derive them):
+# B1 per pixel and offset: squared difference 2, box sum as running column
+# and row sums 4, weight 3 (clamp, multiply by log2(e) / (area h^2), exp2:
+# the area and h^2 fold into one constant), two accumulations (acc += w P,
+# wacc += w) 3 each
+OPS_NLM = 15
+# B2 per pixel: 9 x 10 x 2 min/max, 9 ratios x 4, the mean 9, the optimal
+# 25-comparator sort of 9 x 2, the quartile combine 6
+OPS_LPCV2D = 9 * 10 * 2 + 9 * 4 + 9 + 25 * 2 + 6
+# B6 per voxel: 72 x 10 x 2 min/max, 72 ratios x 4, the mean 72, the 640
+# compare-exchanges of the quartile network x 2, the combine 10
+OPS_LPCV3D = 72 * 10 * 2 + 72 * 4 + 72 + 640 * 2 + 10
 # the 3D volume of tools/bench3d.py and its segmentation settings
 SHAPE_3D = (2020, 2020, 170)
 MAX_CELLS_3D = 16384
 TILED_3D = dict(tile_x=360, margin=64, tile_cap=8192, scan_cap=32)
+
+
+def kernel_work(name: str, **a) -> tuple[float, float]:
+    """(operations, bytes) that kernel ``name`` must at least do on the
+    given inputs: each input byte read once and each output byte written
+    once. The label kernels' work depends on the data: they count only the
+    ``labelled`` pixels' channel rows (``row_bytes`` each) and one add per
+    column of each; ``px_bytes`` are other per-pixel inputs (aux, mask)."""
+    if name == "nlm":
+        pd = a["pd"]
+        px = a["h"] * a["w"]
+        return px * ((2 * pd + 1) ** 2 - 1) // 2 * OPS_NLM, 8 * px
+    if name == "lpcv2d":
+        px = a["h"] * a["w"]
+        return px * OPS_LPCV2D, 8 * px
+    if name == "lpcv3d":
+        return a["voxels"] * OPS_LPCV3D, 8 * a["voxels"]
+    if name == "label_lookup":
+        return a["pixels"], 8 * a["pixels"] + 4 * a["segments"]
+    if name in ("label_stats", "stats_cm"):
+        n, lab, ncols = a["pixels"], a["labelled"], a["ncols"]
+        return lab * ncols, (n * (4 + a.get("px_bytes", 0))
+                             + lab * a["row_bytes"]
+                             + 4 * a["segments"] * ncols)
+    raise ValueError(f"kernel_work: unknown kernel {name}")
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the operations over the f32 peak and the bytes over the
+    memory rate."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -148,6 +206,18 @@ def _time_ms(torch, fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _time_once(torch, fn):
+    """(output, device time in ms) of one call of ``fn`` (CUDA events), for
+    a call too slow to repeat."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def _agree(torch, name, out_k, out_p):
@@ -429,6 +499,9 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     print(f"phase 2 build: {time.time() - t0:.1f} s -> {lib}")
+    for stem in ("nlm", "lpcv3d"):
+        for line in _build.ptxas_report(stem):
+            print(f"phase 2 ptxas {stem}.cu: {line}")
 
     # 3. kernels vs plain at the main path's shapes
     layout = SEVEN_BIT
@@ -440,27 +513,43 @@ def main() -> int:
           f"{len(cell_codes)} cells, built in {time.time() - t0:.1f} s")
     report = {}
 
-    def check(name, kernel, plain, reps, plain_reps, phase=3):
+    def yardsticks(ms, work, library, reps):
+        """bound, share and library call of a kernel timed at ``ms``."""
+        bound_ms, bound_by = bound(*work)
+        library_ms = None if library is None else _time_ms(torch, library,
+                                                           reps)
+        lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        text = (f"bound {bound_ms:.4f} ms ({bound_by}) share "
+                f"{bound_ms / ms:.4f} library {lib_txt}")
+        return {"ops": work[0], "bytes": work[1], "bound_ms": bound_ms,
+                "bound_by": bound_by, "share": bound_ms / ms,
+                "library_ms": library_ms}, text
+
+    def check(name, kernel, plain, reps, plain_reps, work, library=None,
+              phase=3):
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         err, ok = _agree(torch, name, out_k, out_p)
         ms = _time_ms(torch, kernel, reps)
         plain_ms = _time_ms(torch, plain, plain_reps)
+        yard, text = yardsticks(ms, work, library, reps)
         print(f"phase {phase} {name}: max_abs_err {err:.3e} "
               f"({TOL_TEXT[name]}) "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms {text} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with plain")
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **yard}
         return out_k
 
     smooth = torch.from_numpy(_smooth_image((size, size), 0)).to(dev)
     den = check("nlm", lambda: kernels.nlm(smooth, 0.02, 7, 11),
                 lambda: denoise.denoise_nl_means_plain(smooth, 0.02, 7, 11),
-                5, 3)
+                10, 3, kernel_work("nlm", h=size, w=size, pd=11))
     check("lpcv2d", lambda: kernels.lpcv2d(den),
-          lambda: line_profile.lp_cv_enhance_2d_plain(den, 11, 9), 10, 5)
+          lambda: line_profile.lp_cv_enhance_2d_plain(den, 11, 9), 10, 5,
+          kernel_work("lpcv2d", h=size, w=size))
 
     labels = torch.from_numpy(fov["truth_labels"].astype(np.int32)).to(dev)
     flat = labels.reshape(-1)
@@ -468,13 +557,31 @@ def main() -> int:
         .to(dev).to(torch.bfloat16).reshape(flat.shape[0], -1)
     nseg = 2 * MAX_CELLS
     stats_args = (flat, cube_flat, None, None, nseg, 0, False, size, size)
+    nchan = cube_flat.shape[1]
+    # the yardstick: one index_add_ of the labelled pixels' f32 channel
+    # rows, selected and widened outside the timing; it leaves out the
+    # count and border columns
+    sel = (flat > 0) & (flat < nseg)
+    lab_sel, rows_sel = flat[sel], cube_flat[sel].to(torch.float32)
     check("label_stats", lambda: kernels.label_stats(*stats_args),
-          lambda: segstats.label_stats_table_plain(*stats_args), 10, 5)
+          lambda: segstats.label_stats_table_plain(*stats_args), 10, 5,
+          kernel_work("label_stats", pixels=flat.numel(),
+                      labelled=lab_sel.numel(), ncols=2 + nchan,
+                      row_bytes=2 * nchan, segments=nseg),
+          lambda: torch.zeros((nseg, nchan), device=dev).index_add_(
+              0, lab_sel, rows_sel))
+    del sel, lab_sel, rows_sel
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     tbl = torch.rand(nseg, generator=gen).to(dev)
+    # the yardstick: one gather from the table with row 0 set to 0 (the
+    # labels lie in [0, nseg), so it is B4's function on these inputs)
+    tbl0 = tbl.clone()
+    tbl0[0] = 0.0
     check("label_lookup", lambda: kernels.label_lookup(labels, tbl),
-          lambda: segstats.label_lookup_plain(labels, tbl), 20, 20)
+          lambda: segstats.label_lookup_plain(labels, tbl), 20, 20,
+          kernel_work("label_lookup", pixels=labels.numel(), segments=nseg),
+          lambda: torch.index_select(tbl0, 0, flat))
 
     # 4. a small FOV: plain versions on the CPU vs kernels on the card
     cfg = SegmentationConfig()
@@ -554,19 +661,62 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 6 fixture: {SHAPE_3D} volume, {spec.n_cells} planted "
           f"cells, built in {time.time() - t0:.1f} s")
+    # B6 on a 256 x 170 x 256 sub-volume (quick to repeat), then on the
+    # whole volume, the shape segment_3d_tiled gives it: 2020 is no
+    # multiple of the kernel's 16-plane x march nor of its 32-wide y tile,
+    # so the whole volume also takes the partial last blocks
     sub = (vol[:256, :256, :] / vol.max()).permute(0, 2, 1).contiguous()
     check("lpcv3d", lambda: kernels.lpcv3d(sub, True),
           lambda: line_profile.lp_cv_enhance_3d_plain(
-              sub, bf16=True, layout="xzy"), 5, 2, phase=6)
+              sub, bf16=True, layout="xzy"), 5, 2,
+          kernel_work("lpcv3d", voxels=sub.numel()), phase=6)
     del sub
+    sub_report = report.pop("lpcv3d")
+    vol_xzy = (vol / vol.max()).permute(0, 2, 1).contiguous()
+    out_k = kernels.lpcv3d(vol_xzy, True)
+    out_p, plain_vol_ms = _time_once(
+        torch, lambda: line_profile.lp_cv_enhance_3d_plain(
+            vol_xzy, bf16=True, layout="xzy"))
+    err_vol, ok_vol = _agree(torch, "lpcv3d", out_k, out_p)
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    ms_vol = _time_ms(torch, lambda: kernels.lpcv3d(vol_xzy, True), 3)
+    yard, text = yardsticks(ms_vol, kernel_work(
+        "lpcv3d", voxels=vol_xzy.numel()), None, 0)
+    print(f"phase 6 lpcv3d on the whole {tuple(vol_xzy.shape)} (X, Z, Y) "
+          f"volume: max_abs_err {err_vol:.3e} ({TOL_TEXT['lpcv3d']}) "
+          f"kernel {ms_vol:.3f} ms plain {plain_vol_ms:.3f} ms (one call) "
+          f"{text} {'ok' if ok_vol else 'FAIL'}")
+    if not ok_vol:
+        raise AssertionError("lpcv3d: kernel disagrees with plain on the "
+                             "whole volume")
+    report["lpcv3d"] = {"max_abs_err": err_vol, "ms": ms_vol,
+                        "plain_ms": plain_vol_ms, **yard,
+                        "shape": list(vol_xzy.shape),
+                        "subvolume": {"shape": [256, 170, 256],
+                                      **sub_report}}
+    del vol_xzy
+    torch.cuda.empty_cache()
     lab_cm = s3.truth_chunk(spec, len(codes3), 78, 2, dev)[0] \
         .permute(2, 0, 1).contiguous().reshape(-1)
     img_cm = s3.channel_chunk_cm(spec, len(codes3), 78, 2, lut_dev, 1,
                                  torch.bfloat16).reshape(63, -1)
+    # the yardstick: one index_add_ of the labelled voxels' f32 channel
+    # rows, selected, transposed and widened outside the timing (counts
+    # aside)
+    sel = (lab_cm > 0) & (lab_cm < MAX_CELLS_3D)
+    lab_sel = lab_cm[sel]
+    rows_sel = img_cm[:, sel].T.to(torch.float32).contiguous()
     check("stats_cm", lambda: kernels.stats_cm(lab_cm, img_cm, MAX_CELLS_3D),
           lambda: segstats.stats_cm_plain(lab_cm, img_cm, MAX_CELLS_3D),
-          10, 3, phase=6)
-    del lab_cm, img_cm
+          10, 3,
+          kernel_work("stats_cm", pixels=lab_cm.numel(),
+                      labelled=lab_sel.numel(), ncols=1 + img_cm.shape[0],
+                      row_bytes=2 * img_cm.shape[0], segments=MAX_CELLS_3D),
+          lambda: torch.zeros((MAX_CELLS_3D, img_cm.shape[0]),
+                              device=dev).index_add_(0, lab_sel, rows_sel),
+          phase=6)
+    del lab_cm, img_cm, sel, lab_sel, rows_sel
 
     # 7. a small volume: plain versions on the CPU vs kernels on the card
     small3 = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64],
@@ -637,17 +787,28 @@ def main() -> int:
     ms10 = _time_ms(torch, lambda: kernels.label_stats(*args10), 10)
     plain_ms10 = _time_ms(
         torch, lambda: segstats.label_stats_table_plain(*args10), 3)
+    nchan10 = ecube.shape[1]
+    # the yardstick as in phase 3: the labelled pixels' f32 channel rows
+    esel = (eflat > 0) & (eflat < 2 * MAX_CELLS)
+    elab_sel, erows_sel = eflat[esel], ecube[esel].to(torch.float32)
+    yard10, text10 = yardsticks(ms10, kernel_work(
+        "label_stats", pixels=eflat.numel(), labelled=elab_sel.numel(),
+        ncols=out_k.shape[1], row_bytes=2 * nchan10, px_bytes=8,
+        segments=2 * MAX_CELLS),
+        lambda: torch.zeros((2 * MAX_CELLS, nchan10), device=dev)
+        .index_add_(0, elab_sel, erows_sel), 10)
     print(f"phase 9 label_stats 10-bit columns ({out_k.shape[1]} cols x "
           f"{out_k.shape[0]} rows): max_abs_err {err10:.3e} (counts, "
           f"border, aux, mask exact; sums tol 2^-16 rel; moments tol "
           f"{mom_tol:.3e} rel) kernel {ms10:.3f} ms plain {plain_ms10:.3f} "
-          f"ms {'ok' if ok10 else 'FAIL'}")
+          f"ms {text10} {'ok' if ok10 else 'FAIL'}")
     if not ok10:
         raise AssertionError("label_stats at the 10-bit column set: kernel "
                              "disagrees with plain")
     report["label_stats"]["ecoli_10b"] = {
-        "max_abs_err": err10, "ms": ms10, "plain_ms": plain_ms10}
-    del out_k, out_p, eaux, emask, ecube, eflat, elabels, args10
+        "max_abs_err": err10, "ms": ms10, "plain_ms": plain_ms10, **yard10}
+    del out_k, out_p, eaux, emask, ecube, eflat, elabels, args10, esel, \
+        elab_sel, erows_sel
 
     # 10. a small 10-bit FOV: plain versions on the CPU vs kernels on the
     # card

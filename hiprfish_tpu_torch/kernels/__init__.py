@@ -35,12 +35,16 @@ def _stream(t: torch.Tensor) -> int:
 
 def nlm(img: torch.Tensor, h: float, patch_size: int,
         patch_distance: int) -> torch.Tensor:
-    """B1: fast-mode NLM of an (H, W) f32 image (csrc/nlm.cu)."""
+    """B1: fast-mode NLM of an (H, W) f32 image (csrc/nlm.cu); the block's
+    window and weight field fit in shared memory up to patch_distance +
+    patch_size // 2 = 72."""
     _require(img, "nlm img", (torch.float32,), 2)
     hh, ww = img.shape
-    if patch_size % 2 != 1 or not 0 < patch_distance < min(hh, ww):
-        raise ValueError("nlm: odd patch_size and 0 < patch_distance < "
-                         "min(H, W) required")
+    if patch_size % 2 != 1 or not 0 < patch_distance < min(hh, ww) \
+            or patch_distance + patch_size // 2 > 72:
+        raise ValueError("nlm: odd patch_size, 0 < patch_distance < "
+                         "min(H, W) and patch_distance + patch_size // 2 "
+                         "<= 72 required")
     out = torch.empty_like(img)
     lib = _build.load()
     # h^2 rounded to f32 the way the reference computes jnp.float32(h * h)

@@ -11,9 +11,11 @@ and one more nvcc links them:
 
 The library lands in ``build/torch_kernels/<hash>/`` at the repository
 root, where ``<hash>`` covers the sources and the flags, so an edited
-source rebuilds and an unchanged one is reused. The build happens at the
-first kernel launch, never at import. A missing nvcc or a failed build
-raises with the compiler's output: there is no fallback.
+source rebuilds and an unchanged one is reused. ptxas reports each
+kernel's registers, shared memory and spills (``-Xptxas -v``); the report
+of ``X.cu`` is kept beside the library as ``X.ptxas.txt``. The build
+happens at the first kernel launch, never at import. A missing nvcc or a
+failed build raises with the compiler's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libhiprfish_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,22 +78,23 @@ def nvcc_path() -> str:
         "$PATH): the hiprfish_tpu_torch CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the hashed build directory (if not built)."""
-    out_dir = build_dir()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile ``csrc``/*.cu (the package's sources unless another copy is
+    named) into the hashed build directory, if not built yet."""
+    out_dir = build_dir(csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -99,7 +102,7 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = out_dir / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         objs.append(str(obj))
@@ -107,6 +110,8 @@ def build() -> Path:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     done = [(cmd, proc.communicate(), proc.returncode)
             for cmd, proc in procs]
+    for src, (_, (_, err), _) in zip(sorted(csrc.glob("*.cu")), done):
+        (out_dir / f"{src.stem}.ptxas.txt").write_text(err)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
     if all(rc == 0 for _, _, rc in done):
@@ -122,20 +127,33 @@ def build() -> Path:
     return lib
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.hf_error_string.argtypes = [ctypes.c_int]
+    lib.hf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.hf_error_string.argtypes = [ctypes.c_int]
-            lib.hf_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = open_library(build())
     return _lib
+
+
+def ptxas_report(stem: str, csrc: Path = CSRC) -> list[str]:
+    """ptxas's lines on registers, shared memory and spills for the
+    kernels of ``csrc/<stem>.cu``, from its last build."""
+    path = build_dir(csrc) / f"{stem}.ptxas.txt"
+    return [ln.strip() for ln in path.read_text().splitlines()
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -2,12 +2,15 @@
 
     python -m hiprfish_tpu_torch.kernels.gen_lpcv3d_tables
 
-The header holds ``line_table_3d(11, 9, 9)`` as the ``__constant__`` array
-``kLine3`` and the quartile selection network over the 72 orientation
-ratios as the X-macro ``HF_LP3D_SELECT(CX)``, which expands to one
-``CX(a, b)`` compare-exchange per pair so that the kernel indexes its
-register array with literal constants. Tests hold the committed header
-equal to this module's output and to the reference's tables.
+The header holds ``line_table_3d(11, 9, 9)`` as the X-macro
+``HF_LP3D_LINES(L, S)``, one ``L(t, S(x, y, z), ...)`` per orientation with
+its 11 samples as literals, so that the kernel turns every sample into a
+shared-memory load at a compile-time offset; and the quartile selection
+network over the 72 orientation ratios as the X-macro
+``HF_LP3D_SELECT(CX)``, one ``CX(a, b)`` compare-exchange per pair, so that
+the kernel indexes its register arrays with literal constants. Tests hold
+the committed header equal to this module's output and to the reference's
+tables.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ def header_text() -> str:
     net = lp.selection_network(n_orient, (lo25, hi25, lo75, hi75))
     rows = []
     for t in range(n_orient):
-        cells = ", ".join("{%d, %d, %d}" % tuple(int(v) for v in table[t, s])
+        cells = ", ".join("S(%d, %d, %d)" % tuple(int(v) for v in table[t, s])
                           for s in range(PATCH))
-        rows.append("    {" + cells + "},")
+        rows.append(f"  L({t}, {cells})")
+    lines_macro = " \\\n".join(rows)
     pairs = [f"CX({a}, {b})" for a, b in net]
     lines = [" ".join(pairs[i:i + 8]) for i in range(0, len(pairs), 8)]
     select = " \\\n  ".join(lines)
@@ -38,10 +42,12 @@ def header_text() -> str:
 // Generated by `python -m hiprfish_tpu_torch.kernels.gen_lpcv3d_tables`;
 // do not edit by hand.
 //
-// kLine3: line_table_3d({PATCH}, {THETA}, {PHI}) of
-// hiprfish_tpu/ops/line_profile.py. For orientation t and sample s, the
-// (x, y, z) coordinate of the sample within the {PATCH}^3 patch; the voxel
-// itself is at ({PATCH // 2}, {PATCH // 2}, {PATCH // 2}).
+// HF_LP3D_LINES(L, S): line_table_3d({PATCH}, {THETA}, {PHI}) of
+// hiprfish_tpu/ops/line_profile.py. L(t, s_0, ..., s_{PATCH - 1}) for each
+// orientation t, where s_k = S(x, y, z) is the coordinate of sample k within
+// the {PATCH}^3 patch; the voxel itself is at ({PATCH // 2}, {PATCH // 2}, \
+{PATCH // 2}), which is sample
+// {PATCH // 2} of every orientation.
 //
 // HF_LP3D_SELECT(CX): selection_network({n_orient}, ({lo25}, {hi25}, {lo75}, \
 {hi75})) of
@@ -58,9 +64,8 @@ def header_text() -> str:
 #define HF_LP3D_LO75 {lo75}
 #define HF_LP3D_HI75 {hi75}
 
-__constant__ int kLine3[HF_LP3D_NORIENT][HF_LP3D_PATCH][3] = {{
-{chr(10).join(rows)}
-}};
+#define HF_LP3D_LINES(L, S) \\
+{lines_macro}
 
 #define HF_LP3D_SELECT(CX) \\
   {select}

@@ -25,10 +25,12 @@ class CheckHead(nn.Module):
         return self.fc2(torch.relu(self.fc1(x)))[:, 0]
 
     @classmethod
-    def from_numpy(cls, params: dict, device=None) -> "CheckHead":
+    def from_numpy(cls, params: dict,
+                   device=torch.device("cuda")) -> "CheckHead":
         """Build from the reference's {w1 (d_in, hidden), b1, w2 (hidden,
         1), b2} arrays; nn.Linear keeps (out, in), so the weights are
-        transposed."""
+        transposed. The head goes to the card unless the caller names
+        another device."""
         w1 = np.asarray(params["w1"], np.float32)
         w2 = np.asarray(params["w2"], np.float32)
         head = cls(w1.shape[0], w1.shape[1])

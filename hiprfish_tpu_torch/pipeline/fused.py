@@ -217,12 +217,13 @@ def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
                      valid)
 
 
-def classifier_from_numpy(clf, device=None):
+def classifier_from_numpy(clf, device=torch.device("cuda")):
     """Split a classifier given as numpy arrays (models/artifacts.py's
     ClassifierArrays, or the reference's SpectralClassifier, whose fields
     are numpy) into (arrays dict of tensors and CheckHead modules, static
     tuple) for fov_step — the counterpart of the reference's
-    classifier_to_device_args.
+    classifier_to_device_args. The tensors go to the card unless the
+    caller names another device.
 
     The check heads take their blocks zero-padded to one width, the widest
     block's (for the 10-bit violet-derivative classifier 6 heads over

@@ -72,9 +72,10 @@ def node_codes(spec: VolumeSpec, n_codes: int) -> np.ndarray:
 
 
 def truth_chunk(spec: VolumeSpec, n_codes: int, z0: int, zc: int,
-                device=None):
+                device=torch.device("cuda")):
     """(labels (X, Y, zc) int32 with 1-based node ids, code_idx int32,
-    profile f32 in [0, 1]) for the z-slab [z0, z0 + zc).
+    profile f32 in [0, 1]) for the z-slab [z0, z0 + zc), on the card
+    unless the caller names another device.
 
     Each node's parameters are computed once on the (gx, gy, gz) grid and
     gathered per voxel: the same f32 operations on the same inputs as the
@@ -169,8 +170,10 @@ def channel_chunk_cm(spec: VolumeSpec, n_codes: int, z0: int, zc: int,
 
 
 def build_sum_volume(spec: VolumeSpec, n_codes: int, sum_lut, seed: int = 0,
-                     z_chunk: int = 32, device=None) -> torch.Tensor:
-    """The full (X, Y, Z) channel-summed volume, slab by slab."""
+                     z_chunk: int = 32,
+                     device=torch.device("cuda")) -> torch.Tensor:
+    """The full (X, Y, Z) channel-summed volume, slab by slab, on the card
+    unless the caller names another device."""
     lut = torch.as_tensor(np.asarray(sum_lut, np.float32), device=device)
     z = spec.shape[2]
     return torch.cat([sum_chunk(spec, n_codes, z0, min(z_chunk, z - z0),

@@ -20,6 +20,7 @@ from hiprfish_tpu_torch.models import metrics as tmetrics
 from hiprfish_tpu_torch.models.artifacts import load_classifier as tload
 from hiprfish_tpu_torch.models.classifier import CheckHead
 from hiprfish_tpu_torch.pipeline import fused as tfused
+from hiprfish_tpu_torch.utils import synthetic3d as t3
 
 torch.set_num_threads(1)
 
@@ -76,14 +77,14 @@ def test_check_head_matches_mlp_logit():
     p = clf.check_params[0]
     ref = np.asarray(_mlp_logit({k: jnp.asarray(v) for k, v in p.items()},
                                 jnp.asarray(x)))
-    out = CheckHead.from_numpy(p)(torch.from_numpy(x)).numpy()
+    out = CheckHead.from_numpy(p, "cpu")(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_cells,cap", [(20, 32), (60, 32), (60, None)])
 def test_classify_capped_matches_jax(n_cells, cap):
     ja, js = jfused.classifier_to_device_args(jload(FIXTURE))
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE), "cpu")
     rows = _spectra(64, 3)
     rows[n_cells + 1:] = 0.0
     (n_classes, blocks, check_slice, n_channels, k, temperature,
@@ -137,7 +138,7 @@ def test_port_loader_matches_jax_loader_10b():
 
 def test_classifier_from_numpy_carries_10b_heads():
     clf = tload(FIXTURE_10B)
-    arrays, static = tfused.classifier_from_numpy(clf)
+    arrays, static = tfused.classifier_from_numpy(clf, "cpu")
     heads = arrays["check_heads"]
     assert len(heads) == 6 and {h.d_in for h in heads} == {32}
     assert static[:4] == (1023, clf.blocks, clf.check_slice, 95)
@@ -159,13 +160,13 @@ def test_classifier_from_numpy_refuses_ragged_heads():
     params[1] = {k: (v[:10] if k == "w1" else v) for k, v in params[1].items()}
     clf.check_params = tuple(params)
     with pytest.raises(ValueError, match="one input width"):
-        tfused.classifier_from_numpy(clf)
+        tfused.classifier_from_numpy(clf, "cpu")
 
 
 @pytest.mark.parametrize("n_cells,cap", [(20, 32), (60, 32)])
 def test_classify_capped_matches_jax_10b(n_cells, cap):
     ja, js = jfused.classifier_to_device_args(jload(FIXTURE_10B))
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE_10B))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE_10B), "cpu")
     rows = _spectra_10b(64, 5)
     rows[n_cells + 1:] = 0.0
     (n_classes, blocks, check_slice, n_channels, k, temperature,
@@ -187,3 +188,26 @@ def test_classify_capped_matches_jax_10b(n_cells, cap):
     truth = [TEN_BIT.code_str(1 + (i * 37) % 1023)
              for i in range(2, n_cells + 1)]
     assert np.mean([c == t for c, t in zip(calls, truth)]) >= 0.9
+
+
+_SPEC = dict(shape=(48, 48, 8), spacing=(24, 24, 8), seed=0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tfused.classifier_from_numpy(tload(FIXTURE))[0]
+    ["train_features"],
+    lambda: next(CheckHead.from_numpy(tload(FIXTURE).check_params[0])
+                 .parameters()),
+    lambda: t3.truth_chunk(t3.VolumeSpec(**_SPEC), 63, 0, 2)[0],
+    lambda: t3.build_sum_volume(t3.VolumeSpec(**_SPEC), 63, np.ones(63),
+                                z_chunk=4),
+], ids=["classifier_from_numpy", "CheckHead.from_numpy", "truth_chunk",
+        "build_sum_volume"])
+def test_entry_points_default_to_the_card(make):
+    # with no device named they ask for the card: on a machine without one
+    # they raise rather than quietly run on the CPU
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()

@@ -44,7 +44,7 @@ def both_results():
     # the port's side: its own FOV generator, config and loader
     fov = synthetic.make_fov(SEVEN_BIT, codes, shape=(256, 256), seed=1,
                              laser_shifts=SHIFTS, cell_axes=(7.0, 12.0))
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE), "cpu")
     tr = tfused.fov_step(tuple(torch.from_numpy(a) for a in fov["stack"]),
                          ta, SegmentationConfig(), 64, ts)
     return jr, tr

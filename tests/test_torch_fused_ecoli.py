@@ -52,7 +52,7 @@ def both_results():
     fov = synthetic.make_fov(TEN_BIT, CODES, shape=SHAPE, seed=2,
                              laser_shifts=synthetic.ECOLI_SHIFTS,
                              cell_axes=synthetic.ECOLI_CELL_AXES)
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE), "cpu")
     before = kernels.launch_counts()
     tr = tfused_ecoli.fov_step_ecoli(
         tuple(torch.from_numpy(a) for a in fov["stack"]), ta,

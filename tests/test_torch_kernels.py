@@ -126,11 +126,18 @@ def test_reset_launches():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(96, 160), (70, 53), (300, 257)])
-def test_nlm_kernel_matches_plain(cuda, shape):
+# narrower or shorter than the 64 x 64 tile and than 2 * pd + 7 (24 x 30,
+# 37 x 200), and sizes that are not multiples of the tile; pd + patch / 2
+# above 16 takes the 32 x 32 tile geometry, up to its limit of 72
+@pytest.mark.parametrize("shape,patch,pd", [
+    ((96, 160), 7, 11), ((70, 53), 7, 11), ((300, 257), 7, 11),
+    ((24, 30), 7, 11), ((37, 200), 7, 11), ((130, 203), 7, 11),
+    ((96, 160), 7, 15), ((24, 30), 7, 20), ((130, 203), 9, 40),
+    ((150, 171), 7, 69)])
+def test_nlm_kernel_matches_plain(cuda, shape, patch, pd):
     img = torch.from_numpy(_smooth(shape)).to(cuda)
-    out = kernels.nlm(img, 0.02, 7, 11)
-    ref = denoise.denoise_nl_means_plain(img, 0.02, 7, 11)
+    out = kernels.nlm(img, 0.02, patch, pd)
+    ref = denoise.denoise_nl_means_plain(img, 0.02, patch, pd)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
 
@@ -199,13 +206,30 @@ def _volume(shape, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
-@pytest.mark.parametrize("shape", [(40, 24, 70), (17, 9, 33)])
+@pytest.mark.parametrize("shape", [(40, 24, 70), (17, 9, 33), (7, 13, 45),
+                                   (19, 5, 100)])
 def test_lpcv3d_kernel_matches_plain(cuda, bf16, shape):
-    # (X, Z, Y): ragged against the 16 x 8 x 32 tile on every axis
+    # (X, Z, Y): ragged against the block's 16 x-planes, 8 z and 32 y on
+    # every axis; odd nz (the last voxel pair has one voxel), nx < 11 (the
+    # plane ring clamps), ny not a multiple of 32
     vol = torch.from_numpy(_volume(shape, 1)).to(cuda)
     out = line_profile.lp_cv_enhance_3d(vol, bf16=bf16, layout="xzy")
     ref = line_profile.lp_cv_enhance_3d_plain(vol, bf16=bf16, layout="xzy")
     # f32 summation order of the 72-orientation mean
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("scale", [1e-20, 1e30])
+def test_lpcv3d_kernel_exact_slow_path(cuda, bf16, scale):
+    # differences below 2^-60 or ranges above 2^60: the kernel's written-out
+    # quotient is not certain to be exact there, and the pair is redone with
+    # the compiler's division; the result is scale-free
+    vol = torch.from_numpy(_volume((19, 11, 40), 3) * np.float32(scale)) \
+        .to(cuda)
+    out = line_profile.lp_cv_enhance_3d(vol, bf16=bf16, layout="xzy")
+    ref = line_profile.lp_cv_enhance_3d_plain(vol, bf16=bf16, layout="xzy")
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
 

@@ -39,9 +39,13 @@ def test_line_table_3d_equal(patch, theta, phi):
 
 
 def test_header_line_table_equal():
-    body = re.search(r"kLine3\[HF_LP3D_NORIENT\]\[HF_LP3D_PATCH\]\[3\] = "
-                     r"\{(.*?)\};", HEADER.read_text(), re.S).group(1)
-    table = np.array([int(v) for v in re.findall(r"-?\d+", body)])
+    text = HEADER.read_text()
+    body = text[text.index("#define HF_LP3D_LINES(L, S)"):
+                text.index("#define HF_LP3D_SELECT(CX)")]
+    assert [int(t) for t in re.findall(r"L\((\d+),", body)] == \
+        list(range(72))
+    table = np.array(re.findall(r"S\((-?\d+), (-?\d+), (-?\d+)\)", body),
+                     dtype=np.int64)
     np.testing.assert_array_equal(table.reshape(72, 11, 3),
                                   jlp.line_table_3d(11, 9, 9))
 

@@ -31,7 +31,8 @@ fov = synthetic.make_fov(SEVEN_BIT, [1 + (i * 7) % 127 for i in range(9)],
                          shape=(160, 160), seed=1,
                          laser_shifts=[(0, 0), (2, -1), (0, 3), (-2, 0)],
                          cell_axes=(7.0, 12.0))
-arrays, static = fused.classifier_from_numpy(load_classifier(sys.argv[1]))
+arrays, static = fused.classifier_from_numpy(load_classifier(sys.argv[1]),
+                                             "cpu")
 res = fused.fov_step(tuple(torch.from_numpy(a) for a in fov["stack"]),
                      arrays, SegmentationConfig(), 32, static)
 assert not {"jax", "hiprfish_tpu"} & {m.split(".")[0] for m in sys.modules
@@ -50,7 +51,8 @@ fov = synthetic.make_fov(TEN_BIT, [5, 37, 515, 1023, 96, 640, 17, 260, 770],
                          laser_shifts=synthetic.ECOLI_SHIFTS,
                          cell_axes=synthetic.ECOLI_CELL_AXES)
 stack = tuple(torch.from_numpy(a) for a in fov["stack"])
-arrays, static = fused.classifier_from_numpy(load_classifier(sys.argv[1]))
+arrays, static = fused.classifier_from_numpy(load_classifier(sys.argv[1]),
+                                             "cpu")
 res = fused_ecoli.fov_step_ecoli(stack, arrays, SegmentationConfig(), 64,
                                  static)
 host = segment2d.segment_ecoli(stack, SegmentationConfig(), 64)

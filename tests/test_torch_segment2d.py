@@ -103,7 +103,8 @@ def test_fused_engine_matches_host_engine(engines):
                                     tr.n_cells, MAX_CELLS)
     avg = avg_f[1:len(CODES) + 1]
     norm_f = avg / torch.clamp(avg.max(dim=1, keepdim=True).values, min=1e-12)
-    arrays, static = fused.classifier_from_numpy(load_classifier(FIXTURE))
+    arrays, static = fused.classifier_from_numpy(load_classifier(FIXTURE),
+                                                 "cpu")
     calls_f = _classify(arrays, static, norm_f)
     calls_h = _classify(arrays, static, torch.from_numpy(norm_h[order]))
     np.testing.assert_array_equal(calls_f, calls_h)

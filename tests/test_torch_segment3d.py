@@ -301,7 +301,7 @@ def test_volume_slice_matches_jax(volume, jax_tiled):
     avg, _ = run(seg.permute(1, 0, 2).contiguous())
     norm = avg / torch.clamp(torch.max(avg, dim=1, keepdim=True).values,
                              min=1e-12)
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE), "cpu")
     ci, _ = tfused.classify_device(norm, ta["check_heads"], ts[6], None,
                                    None, ta["train_features"],
                                    ta["train_labels"], *ts[:6])
@@ -336,7 +336,7 @@ def test_classify_device_matches_build_features_and_predict():
     rows[0] = 0.0
     pred_j, mp_j, _ = jclf.predict_with_proba(
         jclf.build_features(jnp.asarray(rows)))
-    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE))
+    ta, ts = tfused.classifier_from_numpy(tload(FIXTURE), "cpu")
     pred, mp = tfused.classify_device(
         torch.from_numpy(rows), ta["check_heads"], ts[6], None, None,
         ta["train_features"], ta["train_labels"], *ts[:6])

@@ -25,7 +25,7 @@ SPECS = [
                                       (SPECS[1], 8, 40)])
 def test_truth_chunk_equal(kw, z0, zc):
     ref = j3.truth_chunk(j3.VolumeSpec(**kw), 127, z0, zc)
-    out = t3.truth_chunk(t3.VolumeSpec(**kw), 127, z0, zc)
+    out = t3.truth_chunk(t3.VolumeSpec(**kw), 127, z0, zc, "cpu")
     labels, codes, profile = (np.asarray(a) for a in ref)
     assert (labels > 0).any()
     np.testing.assert_array_equal(out[0].numpy(), labels)
@@ -59,7 +59,7 @@ def test_channel_and_sum_chunks():
     codes = list(range(1, 64))
     lut = np.stack([synthetic.barcode_spectrum(SEVEN_BIT, c) for c in codes])
     lut_t = torch.from_numpy(lut.astype(np.float32))
-    labels, code_idx, profile = t3.truth_chunk(spec, 63, 8, 4)
+    labels, code_idx, profile = t3.truth_chunk(spec, 63, 8, 4, "cpu")
     cm = t3.channel_chunk_cm(spec, 63, 8, 4, lut_t, seed=1)
     assert cm.shape == (63, 4, 180, 180) and cm.dtype == torch.float32
     noise = cm - (lut_t.T[:, code_idx.long()] * profile).permute(0, 3, 1, 2)
@@ -71,10 +71,11 @@ def test_channel_and_sum_chunks():
     bf = t3.channel_chunk_cm(spec, 63, 8, 4, lut_t, 1, torch.bfloat16)
     assert bf.dtype == torch.bfloat16
     torch.testing.assert_close(bf.float(), cm, rtol=2.0 ** -8, atol=0)
-    vol = t3.build_sum_volume(spec, 63, lut.sum(axis=1), seed=1, z_chunk=16)
+    vol = t3.build_sum_volume(spec, 63, lut.sum(axis=1), seed=1, z_chunk=16,
+                              device="cpu")
     assert vol.shape == (180, 180, 40)
     s = t3.sum_chunk(spec, 63, 16, 16, torch.from_numpy(
         lut.sum(axis=1).astype(np.float32)), 1)
     torch.testing.assert_close(vol[:, :, 16:32], s, rtol=0, atol=0)
-    inside = t3.truth_chunk(spec, 63, 16, 16)[0] > 0
+    inside = t3.truth_chunk(spec, 63, 16, 16, "cpu")[0] > 0
     assert float(s[inside].mean()) > 10 * float(s[~inside].mean())
