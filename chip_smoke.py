@@ -7,23 +7,29 @@ Phases, each printing its own line; any failure raises, so the script exits
 non-zero and prints no result:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from csrc/ (one nvcc per source, in
-     parallel), print the build time and ptxas's registers and spills of
-     B1 and B6;
+  2. build the six CUDA kernels from csrc/ (one nvcc per source) and, in
+     parallel with them, B6's instance for the configuration (7, 5, 6) of
+     phase 13; print the build time and ptxas's registers and spills of
+     B1, B3/B4/B5 and B6;
   3. run the 2D kernels against their plain-torch twins on the card at the
-     main path's shapes (2000^2 images, the 2000^2 label image with the
-     bf16 (2000, 2000, 63) cube and 16384 segments, a 16384-entry table),
-     and print the max error against the stated tolerance, both median
-     times, the kernel's bound (kernel_work) and its share of it, and the
-     time of one PyTorch call that computes the same function where there
-     is one (library_ms; timed here only, the port never calls it);
+     main path's shapes (2000^2 images; B3 on the 2000^2 label image with
+     16384 segments at the column sets the paths launch: counts only, counts
+     + a 41-class erosion-depth histogram, and the bf16 (2000, 2000, 63)
+     cube; B4 with a 16384-entry table), and print the max error against
+     the stated tolerance, both median times, the kernel's bound
+     (kernel_work) and its share of it, and the time of one PyTorch call
+     that computes the same function where there is one (library_ms; timed
+     here only, the port never calls it). B3 must agree bitwise with its
+     twin on every integer column (count, border, moments, aux, mask) and
+     give the same bits in a second launch;
   4. run the port's fov_step on a 256^2 FOV on the CPU (plain versions) and
      on the card (kernels), and hold the two results together;
   5. run fov_step on the 2000^2 7-bit FOV (400 planted cells) with the
      committed 127-code classifier and max_cells=8192; every 2D kernel's
      launch count must rise during that call; barcode accuracy against the
      planted truth must be >= 0.99 over >= 380 matched cells; print ms/FOV
-     (median of 5 synchronised calls after the counted one);
+     (median of 5 synchronised calls after the counted one) and n_cells of
+     all six calls, which must be equal;
   6. build the 3D fixture (tools/bench3d.py's 2020 x 2020 x 170 volume,
      9,408 planted cells, seed 5) on the card; hold B6 (3D LP-CV, bf16)
      against its plain twin on a 256 x 170 x 256 (X, Z, Y) sub-volume and
@@ -31,7 +37,9 @@ non-zero and prints no result:
      the 3D path gives it (the plain twin timed once there), and B5
      (channels-major stats) against its plain twin on a bf16
      (63, 2, 2020, 2020) slab with 16384 segments (with bounds and library
-     calls as in 3);
+     calls as in 3); then B3 (counts) and B4 on a 3D tile's labels as
+     segment_3d_tiled gives them, (360 + 2 x 64) x 170 x 2020 (the planted
+     cells of the tile's slab, ranked within it, 8192 segments);
   7. run segment_3d_tiled on the 144 x 96 x 40 volume of the JAX package's
      tiled test on the CPU (plain versions) and on the card (kernels), both
      in bf16 LP-CV mode: equal n_cells, segmentation agreement >= 0.9999;
@@ -47,19 +55,24 @@ non-zero and prints no result:
      5 lasers, 95 channels, 400 planted cells) and hold B3 against its
      plain twin at the 10-bit step's column set: the truth labels with
      16384 segments, the bf16 (2000^2, 95) cube, an aux image in [0, 41),
-     moments and a 0/1 mask; counts, border, aux and mask columns exact,
-     channel sums within 2^-16 relative, moments within the f32 summation
-     bound stated below;
+     moments and a 0/1 mask; count, border, moment, aux and mask columns
+     bitwise equal to the twin's and to a second launch's, channel sums
+     within 2^-16 relative;
  10. run the port's fov_step_ecoli on a 256^2 10-bit FOV on the CPU (plain
      versions) and on the card (kernels): equal n_cells and calls,
      segmentation agreement >= 0.999;
  11. run fov_step_ecoli on the 2000^2 10-bit FOV with the committed
      1023-class classifier and max_cells=8192; B3 and B4 must launch;
      barcode accuracy >= 0.99 over >= 380 matched cells; print ms/FOV
-     (median of 5 synchronised calls after the counted one);
+     (median of 5 synchronised calls after the counted one) and n_cells of
+     all six calls, which must be equal;
  12. run the host engine once on the same FOV (segment2d.segment_ecoli ->
      measure.measure_fov -> the 132-d features -> fused.classify_device):
-     the same accuracy bar; print each stage's seconds.
+     the same accuracy bar; print each stage's seconds;
+ 13. hold B1, B2 and B6 against their plain twins at configurations other
+     than the main paths' and time both: B1 at patch 7, pd 80 (its
+     global-memory geometry), B2 at (7, 5) and (15, 12) (a 96 x 160
+     image), B6 at (7, 5, 6) in bf16 and f32 (a 40 x 24 x 36 volume).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on each path, errors, times, bound and library call); the last
@@ -74,6 +87,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -93,9 +107,6 @@ TOL = {
     # version differences cumulative sums
     "nlm": 1e-5,
     "lpcv2d": 1e-6,
-    # counts and border counts are exact; sums are atomics in run order,
-    # within 2^-16 relative of the plain version
-    "label_stats": 2.0 ** -16,
     "label_lookup": 0.0,
     # B5 as B3: counts exact, channel sums within 2^-16 relative
     "stats_cm": 2.0 ** -16,
@@ -104,11 +115,12 @@ TOL = {
     "lpcv3d": 1e-6,
 }
 # leading columns that must agree exactly (counts)
-EXACT_COLS = {"label_stats": 2, "stats_cm": 1}
+EXACT_COLS = {"stats_cm": 1}
 TOL_TEXT = {
     "nlm": f"tol {TOL['nlm']:.0e} abs",
     "lpcv2d": f"tol {TOL['lpcv2d']:.0e} abs",
-    "label_stats": "counts exact, sums tol 2^-16 rel",
+    # B3 (_agree_b3): the columns whose terms are integers are exact
+    "label_stats": "integer columns bitwise, twice; sums tol 2^-16 rel",
     "label_lookup": "exact",
     "stats_cm": "counts exact, sums tol 2^-16 rel",
     "lpcv3d": f"tol {TOL['lpcv3d']:.0e} abs",
@@ -132,6 +144,11 @@ SOURCES = {
 PATH_2D = ("nlm", "lpcv2d", "label_stats", "label_lookup")
 PATH_3D = ("label_stats", "label_lookup", "stats_cm", "lpcv3d")
 PATH_ECOLI = ("label_stats", "label_lookup")
+# the order of the kernels line: B3 once per column set, B4 once per shape
+REPORT_ORDER = ("nlm", "lpcv2d", "label_stats[counts]", "label_stats[aux41]",
+                "label_stats[cube7b]", "label_stats[cols10b]",
+                "label_stats[tile3d]", "label_lookup[2000^2]",
+                "label_lookup[tile3d]", "stats_cm", "lpcv3d")
 # the 10-bit step's erosion-depth histogram has max_erosion_iters + 1
 # classes
 AUX_CLASSES_10B = 41
@@ -156,6 +173,11 @@ OPS_LPCV3D = 72 * 10 * 2 + 72 * 4 + 72 + 640 * 2 + 10
 SHAPE_3D = (2020, 2020, 170)
 MAX_CELLS_3D = 16384
 TILED_3D = dict(tile_x=360, margin=64, tile_cap=8192, scan_cap=32)
+# the configurations of phase 13: (h, w, patch, pd) of B1, the (patch,
+# phi) of B2 and the (patch, theta, phi) of B6
+DOMAIN_NLM = (96, 160, 7, 80)
+DOMAIN_LPCV2D = ((7, 5), (15, 12))
+DOMAIN_LPCV3D = (7, 5, 6)
 
 
 def kernel_work(name: str, **a) -> tuple[float, float]:
@@ -193,18 +215,33 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def _time_ms(torch, fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events),
-    after one warm call."""
+    """Device time of one call of ``fn`` in ms (CUDA events): the median
+    over 3 batches of the mean of ceil(reps / 3) calls queued back to back,
+    after one warm call. Each batch waits behind a spin kernel long enough
+    for the host to enqueue it, so that the host's launch overhead (tens of
+    microseconds of Python per call) stays off the device's timeline; a
+    call that synchronises with the host pays it all the same."""
+    per = max(1, -(-reps // 3))
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # the card's clock is below 2 GHz: this many cycles last at least as
+    # long as 1.5 x the host's enqueue time of the batch (capped at 0.2 s)
+    cycles = int(2e9 * min(1.5 * per * host_s, 0.2))
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return float(np.median(times))
 
 
@@ -439,25 +476,58 @@ def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
             "launches": launches, "peak_gib": peak}
 
 
-def _agree_10b(torch, out_k, out_p, nchan: int, naux: int):
-    """B3 at the 10-bit column set [count, border, 5 moments, nchan sums,
-    naux histogram, mask count]: (max abs error, moment tolerance, ok).
+def _b3_exact_columns(ncols: int, nmom: int, nchan: int) -> list:
+    """The columns of a B3 table whose terms are integers: all but the
+    channel sums (count, border, moments, aux histogram, 0/1 mask)."""
+    return [c for c in range(ncols)
+            if not 2 + nmom <= c < 2 + nmom + nchan]
 
-    Counts, border, histogram and mask columns are integers below 2^24 and
-    must be equal. Channel sums must be within 2^-16 relative. Moments are
-    sums of up to n values of r^2 ~ 4e6 per label; the kernel and the plain
-    twin (index_add_) both add in the card's atomic run order, and any two
-    orders of n f32 terms differ by at most 2 (n - 1) 2^-24 relative to the
-    sum of their magnitudes (non-negative here, so to the sum itself)."""
-    exact = [0, 1] + list(range(7 + nchan, 7 + nchan + naux + 1))
-    rel = ((out_k - out_p).abs() / out_p.abs().clamp(min=1.0))
+
+def _agree_b3(torch, out_k, out_k2, out_p, nmom: int, nchan: int):
+    """B3 against its twin: (max abs error, ok). The integer columns must
+    be bitwise equal to the twin's and to a second launch's (out_k2); the
+    channel sums, added in the card's atomic order, within 2^-16
+    relative."""
+    exact = _b3_exact_columns(out_k.shape[1], nmom, nchan)
+    sums = slice(2 + nmom, 2 + nmom + nchan)
+    rel = ((out_k[:, sums] - out_p[:, sums]).abs()
+           / out_p[:, sums].abs().clamp(min=1.0))
     err = float((out_k - out_p).abs().max())
-    n_max = float(out_p[:, 0].max())
-    mom_tol = 2.0 * max(n_max - 1.0, 1.0) * 2.0 ** -24
     ok = (bool(torch.equal(out_k[:, exact], out_p[:, exact]))
-          and float(rel[:, 2:7].max()) <= mom_tol
-          and float(rel[:, 7:7 + nchan].max()) <= 2.0 ** -16)
-    return err, mom_tol, ok
+          and bool(torch.equal(out_k[:, exact], out_k2[:, exact]))
+          and (nchan == 0 or float(rel.max()) <= 2.0 ** -16))
+    return err, ok
+
+
+def _depth_classes(torch, labels):
+    """The 10-bit step's erosion-depth classes of a label image's cells:
+    the number of cross erosions (up to 40) each pixel of the cells'
+    interior survives, clamped to [0, 41), as flat int32."""
+    from hiprfish_tpu_torch.ops import morphology as morph
+
+    interior = labels > 0
+    eroded, depth = interior, interior.to(torch.int32)
+    for _ in range(AUX_CLASSES_10B - 2):
+        eroded = morph.binary_erosion(eroded) & interior
+        depth = depth + eroded
+    return torch.clamp(depth, 0, AUX_CLASSES_10B - 1).reshape(-1) \
+        .contiguous()
+
+
+def _tile_labels(torch, spec, n_codes: int, dev):
+    """A 3D tile's labels as segment_3d_tiled hands them to B3 and B4:
+    (tile_x + 2 margin, Z, Y) int32, here the planted cells of the volume's
+    first slab, ranked 1.. within it."""
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    tx = TILED_3D["tile_x"] + 2 * TILED_3D["margin"]
+    tile = torch.empty((tx, SHAPE_3D[2], SHAPE_3D[1]), dtype=torch.int32,
+                       device=dev)
+    for z0 in range(0, SHAPE_3D[2], 10):
+        zc = min(10, SHAPE_3D[2] - z0)
+        tile[:, z0:z0 + zc] = s3.truth_chunk(spec, n_codes, z0, zc,
+                                             dev)[0][:tx].permute(0, 2, 1)
+    return torch.unique(tile, return_inverse=True)[1].to(torch.int32)
 
 
 def _smooth_image(shape, seed: int):
@@ -494,12 +564,15 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: the library and, beside it, phase 13's B6 instance
     t0 = time.time()
-    lib = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_build.build),
+                pool.submit(_build.build_lpcv3d, *DOMAIN_LPCV3D)]
+        lib, lib3 = (j.result() for j in jobs)
     _build.load()
-    print(f"phase 2 build: {time.time() - t0:.1f} s -> {lib}")
-    for stem in ("nlm", "lpcv3d"):
+    print(f"phase 2 build: {time.time() - t0:.1f} s -> {lib}, {lib3}")
+    for stem in ("nlm", "segstats", "lpcv3d"):
         for line in _build.ptxas_report(stem):
             print(f"phase 2 ptxas {stem}.cu: {line}")
 
@@ -526,15 +599,17 @@ def main() -> int:
                 "library_ms": library_ms}, text
 
     def check(name, kernel, plain, reps, plain_reps, work, library=None,
-              phase=3):
+              phase=3, agree=None):
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
-        err, ok = _agree(torch, name, out_k, out_p)
+        base = name.split("[")[0]
+        err, ok = (_agree(torch, base, out_k, out_p) if agree is None
+                   else agree(out_k, out_p))
         ms = _time_ms(torch, kernel, reps)
         plain_ms = _time_ms(torch, plain, plain_reps)
         yard, text = yardsticks(ms, work, library, reps)
         print(f"phase {phase} {name}: max_abs_err {err:.3e} "
-              f"({TOL_TEXT[name]}) "
+              f"({TOL_TEXT[base]}) "
               f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms {text} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -543,11 +618,25 @@ def main() -> int:
                         **yard}
         return out_k
 
+    def check_b3(key, args, reps, plain_reps, work, library, phase=3):
+        """B3 at one column set: check() with the integer columns held
+        bitwise to the twin and to a second launch."""
+        nmom = 5 if args[6] else 0
+        nchan = 0 if args[1] is None else args[1].shape[1]
+        return check(
+            f"label_stats[{key}]", lambda: kernels.label_stats(*args),
+            lambda: segstats.label_stats_table_plain(*args), reps,
+            plain_reps, work, library, phase,
+            agree=lambda out_k, out_p: _agree_b3(
+                torch, out_k, kernels.label_stats(*args), out_p, nmom,
+                nchan))
+
     smooth = torch.from_numpy(_smooth_image((size, size), 0)).to(dev)
     den = check("nlm", lambda: kernels.nlm(smooth, 0.02, 7, 11),
                 lambda: denoise.denoise_nl_means_plain(smooth, 0.02, 7, 11),
                 10, 3, kernel_work("nlm", h=size, w=size, pd=11))
-    check("lpcv2d", lambda: kernels.lpcv2d(den),
+    table2d = line_profile.line_table_2d(11, 9)
+    check("lpcv2d", lambda: kernels.lpcv2d(den, table2d),
           lambda: line_profile.lp_cv_enhance_2d_plain(den, 11, 9), 10, 5,
           kernel_work("lpcv2d", h=size, w=size))
 
@@ -556,20 +645,42 @@ def main() -> int:
     cube_flat = torch.cat([torch.from_numpy(a) for a in fov["stack"]], dim=2) \
         .to(dev).to(torch.bfloat16).reshape(flat.shape[0], -1)
     nseg = 2 * MAX_CELLS
+    n_lab = int(((flat > 0) & (flat < nseg)).sum())
+    # counts only (the seed-size filters, fill-holes ranks, 3D tiles); the
+    # yardstick: one bincount of the labels
+    check_b3("counts", (flat, None, None, None, nseg, 0, False, size, size),
+             20, 10,
+             kernel_work("label_stats", pixels=flat.numel(), labelled=n_lab,
+                         ncols=2, row_bytes=0, segments=nseg),
+             lambda: torch.bincount(flat, minlength=nseg))
+    # counts + the 41-class erosion-depth histogram of the 10-bit step's
+    # seeding (depth of the cells' interior after up to 40 erosions); the
+    # yardstick: one bincount of label * 41 + class, the key made outside
+    # the timing
+    aux_flat = _depth_classes(torch, labels)
+    aux_key = flat.to(torch.int64) * AUX_CLASSES_10B + aux_flat
+    check_b3("aux41", (flat, None, aux_flat, None, nseg, AUX_CLASSES_10B,
+                       False, size, size), 20, 5,
+             kernel_work("label_stats", pixels=flat.numel(), labelled=n_lab,
+                         ncols=2 + AUX_CLASSES_10B, row_bytes=0, px_bytes=4,
+                         segments=nseg),
+             lambda: torch.bincount(aux_key,
+                                    minlength=AUX_CLASSES_10B * nseg))
+    del aux_flat, aux_key
+    # the 7-bit step's measurement set: the bf16 63-channel cube; the
+    # yardstick: one index_add_ of the labelled pixels' f32 channel rows,
+    # selected and widened outside the timing (it leaves out the count and
+    # border columns)
     stats_args = (flat, cube_flat, None, None, nseg, 0, False, size, size)
     nchan = cube_flat.shape[1]
-    # the yardstick: one index_add_ of the labelled pixels' f32 channel
-    # rows, selected and widened outside the timing; it leaves out the
-    # count and border columns
     sel = (flat > 0) & (flat < nseg)
     lab_sel, rows_sel = flat[sel], cube_flat[sel].to(torch.float32)
-    check("label_stats", lambda: kernels.label_stats(*stats_args),
-          lambda: segstats.label_stats_table_plain(*stats_args), 10, 5,
-          kernel_work("label_stats", pixels=flat.numel(),
-                      labelled=lab_sel.numel(), ncols=2 + nchan,
-                      row_bytes=2 * nchan, segments=nseg),
-          lambda: torch.zeros((nseg, nchan), device=dev).index_add_(
-              0, lab_sel, rows_sel))
+    check_b3("cube7b", stats_args, 10, 5,
+             kernel_work("label_stats", pixels=flat.numel(),
+                         labelled=lab_sel.numel(), ncols=2 + nchan,
+                         row_bytes=2 * nchan, segments=nseg),
+             lambda: torch.zeros((nseg, nchan), device=dev).index_add_(
+                 0, lab_sel, rows_sel))
     del sel, lab_sel, rows_sel
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -578,7 +689,7 @@ def main() -> int:
     # labels lie in [0, nseg), so it is B4's function on these inputs)
     tbl0 = tbl.clone()
     tbl0[0] = 0.0
-    check("label_lookup", lambda: kernels.label_lookup(labels, tbl),
+    check("label_lookup[2000^2]", lambda: kernels.label_lookup(labels, tbl),
           lambda: segstats.label_lookup_plain(labels, tbl), 20, 20,
           kernel_work("label_lookup", pixels=labels.numel(), segments=nseg),
           lambda: torch.index_select(tbl0, 0, flat))
@@ -631,20 +742,25 @@ def main() -> int:
         seg, fov["truth_labels"], res.code_idx.cpu().numpy(), cell_codes,
         list(clf.codebook), layout, n_found, MAX_CELLS)
     acc = correct / max(total, 1)
-    times = []
+    times, n_calls = [], [n_found]
     for _ in range(5):
         t0 = time.time()
-        step()
+        r = step()
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1000)
+        n_calls.append(int(r.n_cells))
     ms = float(np.median(times))
     print(f"phase 5 fov_step {size}^2: n_cells {n_found}, matched {total}, "
           f"accuracy {acc:.4f} ({correct}/{total}), {ms:.1f} ms/FOV "
-          f"(median of 5; all {[round(t, 1) for t in times]})")
+          f"(median of 5; all {[round(t, 1) for t in times]}); n_cells of "
+          f"the six calls {n_calls}")
     if total < 380 or acc < 0.99:
         raise AssertionError("accuracy below 0.99 or fewer than 380 cells")
+    if len(set(n_calls)) != 1:
+        raise AssertionError(f"fov_step: n_cells differs between calls "
+                             f"{n_calls}")
     # the 7-bit FOV's host and device arrays are not used again
-    del fov, stack, res, seg, labels, flat, cube_flat, stats_args, small, \
+    del fov, stack, res, r, seg, labels, flat, cube_flat, stats_args, small, \
         outs, cpu_r, gpu_r
 
     # 6. the 3D fixture; B6 and B5 against their plain twins
@@ -718,6 +834,33 @@ def main() -> int:
           phase=6)
     del lab_cm, img_cm, sel, lab_sel, rows_sel
 
+    # B3 (counts) and B4 on a 3D tile's labels as segment_3d_tiled hands
+    # them over: (tile_x + 2 margin) x Z x Y, here the planted cells of the
+    # volume's first slab ranked within it (the tile's seed markers cover
+    # fewer voxels)
+    tile = _tile_labels(torch, spec, len(codes3), dev)
+    tx = tile.shape[0]
+    tcap = TILED_3D["tile_cap"]
+    tflat = tile.reshape(-1)
+    n_tile = int((tflat > 0).sum())
+    print(f"phase 6 3D tile labels {tuple(tile.shape)}: {int(tflat.max())} "
+          f"cells, {n_tile} labelled voxels")
+    check_b3("tile3d", (tflat, None, None, None, tcap, 0, False, tx,
+                        tflat.numel() // tx), 10, 3,
+             kernel_work("label_stats", pixels=tflat.numel(),
+                         labelled=n_tile, ncols=2, row_bytes=0,
+                         segments=tcap),
+             lambda: torch.bincount(tflat, minlength=tcap), phase=6)
+    ttbl = torch.rand(tcap, generator=gen).to(dev)
+    ttbl0 = ttbl.clone()
+    ttbl0[0] = 0.0
+    check("label_lookup[tile3d]", lambda: kernels.label_lookup(tile, ttbl),
+          lambda: segstats.label_lookup_plain(tile, ttbl), 10, 3,
+          kernel_work("label_lookup", pixels=tflat.numel(), segments=tcap),
+          lambda: torch.index_select(ttbl0, 0, tflat), phase=6)
+    del tile, tflat, ttbl, ttbl0
+    torch.cuda.empty_cache()
+
     # 7. a small volume: plain versions on the CPU vs kernels on the card
     small3 = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64],
                            (144, 96, 40)).sum(axis=3)
@@ -779,36 +922,17 @@ def main() -> int:
         .to(torch.float32).to(dev)
     args10 = (eflat, ecube, eaux, emask, 2 * MAX_CELLS, AUX_CLASSES_10B,
               True, esize, esize)
-    out_k = kernels.label_stats(*args10)
-    out_p = segstats.label_stats_table_plain(*args10)
-    torch.cuda.synchronize()
-    err10, mom_tol, ok10 = _agree_10b(torch, out_k, out_p,
-                                      TEN_BIT.n_channels, AUX_CLASSES_10B)
-    ms10 = _time_ms(torch, lambda: kernels.label_stats(*args10), 10)
-    plain_ms10 = _time_ms(
-        torch, lambda: segstats.label_stats_table_plain(*args10), 3)
     nchan10 = ecube.shape[1]
     # the yardstick as in phase 3: the labelled pixels' f32 channel rows
     esel = (eflat > 0) & (eflat < 2 * MAX_CELLS)
     elab_sel, erows_sel = eflat[esel], ecube[esel].to(torch.float32)
-    yard10, text10 = yardsticks(ms10, kernel_work(
+    check_b3("cols10b", args10, 10, 3, kernel_work(
         "label_stats", pixels=eflat.numel(), labelled=elab_sel.numel(),
-        ncols=out_k.shape[1], row_bytes=2 * nchan10, px_bytes=8,
-        segments=2 * MAX_CELLS),
+        ncols=2 + 5 + nchan10 + AUX_CLASSES_10B + 1, row_bytes=2 * nchan10,
+        px_bytes=8, segments=2 * MAX_CELLS),
         lambda: torch.zeros((2 * MAX_CELLS, nchan10), device=dev)
-        .index_add_(0, elab_sel, erows_sel), 10)
-    print(f"phase 9 label_stats 10-bit columns ({out_k.shape[1]} cols x "
-          f"{out_k.shape[0]} rows): max_abs_err {err10:.3e} (counts, "
-          f"border, aux, mask exact; sums tol 2^-16 rel; moments tol "
-          f"{mom_tol:.3e} rel) kernel {ms10:.3f} ms plain {plain_ms10:.3f} "
-          f"ms {text10} {'ok' if ok10 else 'FAIL'}")
-    if not ok10:
-        raise AssertionError("label_stats at the 10-bit column set: kernel "
-                             "disagrees with plain")
-    report["label_stats"]["ecoli_10b"] = {
-        "max_abs_err": err10, "ms": ms10, "plain_ms": plain_ms10, **yard10}
-    del out_k, out_p, eaux, emask, ecube, eflat, elabels, args10, esel, \
-        elab_sel, erows_sel
+        .index_add_(0, elab_sel, erows_sel), phase=9)
+    del eaux, emask, ecube, eflat, elabels, args10, esel, elab_sel, erows_sel
 
     # 10. a small 10-bit FOV: plain versions on the CPU vs kernels on the
     # card
@@ -864,21 +988,26 @@ def main() -> int:
         eseg, etruth, eres.code_idx.cpu().numpy(), ecodes, codebook10,
         TEN_BIT, en_found, MAX_CELLS)
     eacc = ecorrect / max(etotal, 1)
-    etimes = []
+    etimes, en_calls = [], [en_found]
     for _ in range(5):
         t0 = time.time()
-        estep()
+        er = estep()
         torch.cuda.synchronize()
         etimes.append((time.time() - t0) * 1000)
+        en_calls.append(int(er.n_cells))
     ems = float(np.median(etimes))
     print(f"phase 11 fov_step_ecoli {esize}^2: n_cells {en_found}, matched "
           f"{etotal}, accuracy {eacc:.4f} ({ecorrect}/{etotal}), "
           f"{ems:.1f} ms/FOV (median of 5; all "
-          f"{[round(t, 1) for t in etimes]})")
+          f"{[round(t, 1) for t in etimes]}); n_cells of the six calls "
+          f"{en_calls}")
     if etotal < 380 or eacc < 0.99:
         raise AssertionError("10-bit step: accuracy below 0.99 or fewer "
                              "than 380 cells")
-    del eres, eseg
+    if len(set(en_calls)) != 1:
+        raise AssertionError(f"fov_step_ecoli: n_cells differs between "
+                             f"calls {en_calls}")
+    del eres, er, eseg
 
     # 12. the host engine once at full size
     hstages = {}
@@ -914,18 +1043,59 @@ def main() -> int:
         raise AssertionError("10-bit host engine: accuracy below 0.99 or "
                              "fewer than 380 cells")
 
+    # 13. B1, B2 and B6 beyond the main paths' configurations
+    domains = {}
+
+    def domain(name, base, kernel, plain, reps):
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok = _agree(torch, base, out_k, out_p)
+        ms = _time_ms(torch, kernel, reps)
+        plain_ms = _time_ms(torch, plain, 1)
+        print(f"phase 13 {name}: max_abs_err {err:.3e} ({TOL_TEXT[base]}) "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+              f"{'ok' if ok else 'FAIL'}")
+        domains[name] = {"max_abs_err": err, "ok": ok, "ms": ms,
+                         "plain_ms": plain_ms}
+
+    hh, ww, patch, pd = DOMAIN_NLM
+    img13 = torch.from_numpy(_smooth_image((hh, ww), 13)).to(dev)
+    domain(f"nlm patch {patch} pd {pd} {hh}x{ww}", "nlm",
+           lambda: kernels.nlm(img13, 0.02, patch, pd),
+           lambda: denoise.denoise_nl_means_plain(img13, 0.02, patch, pd), 3)
+    for p2, phi in DOMAIN_LPCV2D:
+        tab = line_profile.line_table_2d(p2, phi)
+        domain(f"lpcv2d ({p2}, {phi}) {hh}x{ww}", "lpcv2d",
+               lambda: kernels.lpcv2d(img13, tab),
+               lambda: line_profile.lp_cv_enhance_2d_plain(img13, p2, phi),
+               10)
+    vol13 = torch.from_numpy(_volume_stack([1, 9, 65, 127], (40, 36, 24))
+                             .sum(axis=3)).to(dev)
+    vol13 = (vol13 / vol13.max()).permute(0, 2, 1).contiguous()
+    for bf16 in (True, False):
+        domain(f"lpcv3d {DOMAIN_LPCV3D} {'bf16' if bf16 else 'f32'} "
+               f"{'x'.join(map(str, vol13.shape))}", "lpcv3d",
+               lambda: kernels.lpcv3d(vol13, bf16, *DOMAIN_LPCV3D),
+               lambda: line_profile.lp_cv_enhance_3d_plain(
+                   vol13, *DOMAIN_LPCV3D, bf16=bf16, layout="xzy"), 10)
+    if not all(d["ok"] for d in domains.values()):
+        raise AssertionError("a kernel disagrees with its plain twin beyond "
+                             "the main paths' configurations")
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI)}
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k],
-         "launches": sum(c[k] * (k in p) for c, p in by_path.values()),
-         "launches_by_path": {name: c[k] * (k in p)
-                              for name, (c, p) in by_path.items()},
-         **report[k]}
-        for k in ("nlm", "lpcv2d", "label_stats", "label_lookup",
-                  "stats_cm", "lpcv3d")]}))
+    entries = []
+    for key in REPORT_ORDER:
+        k = key.split("[")[0]
+        entries.append({
+            "name": key, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k],
+            "launches": sum(c[k] * (k in p) for c, p in by_path.values()),
+            "launches_by_path": {name: c[k] * (k in p)
+                                 for name, (c, p) in by_path.items()},
+            **report[key]})
+    print(json.dumps({"kernels": entries, "domains": domains}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -46,6 +46,14 @@
 //     multiply and one exp2 in place of two IEEE divisions and expf;
 //   * one block barrier per offset: the weight field is double-buffered,
 //     and the band's rows need only __syncwarp.
+// Beyond pd + patch / 2 = 72 the window and field no longer fit in 227 KB,
+// and a third geometry (nlm_kernel_global) takes over: one thread per
+// output pixel reads P straight from the image in global memory (through
+// L2 and the read-only path; the reflect padding and the roll's wrap are
+// index arithmetic), and for each offset sums its two box sums, at q and at
+// q + o, directly over the patch. It holds nothing in shared memory, so it
+// takes any odd patch and any 0 < pd < min(H, W); it computes each weight
+// twice and each box sum without sliding: a correct kernel, not a fast one.
 // The running sums and the folded constant round differently from the XLA
 // path's cumulative-sum differences and divisions, amplified by 1/h^2
 // (tolerance stated in chip_smoke.py).
@@ -351,20 +359,91 @@ int nlm_launch(const float* img, float* out, int h, int w, int pd, int patch,
   return (int)cudaGetLastError();
 }
 
+// P, the image reflect-padded by pd, at frame position (r, c) of the
+// (hp, wp) frame; r and c may lie up to one frame outside it, where the
+// roll wraps them around.
+__device__ __forceinline__ float frame_px(const float* __restrict__ img,
+                                          int h, int w, int pd, int hp,
+                                          int wp, int r, int c) {
+  r = r < 0 ? r + hp : (r >= hp ? r - hp : r);
+  c = c < 0 ? c + wp : (c >= wp ? c - wp : c);
+  return __ldg(img + (size_t)reflect_idx(r - pd, h) * w +
+               reflect_idx(c - pd, w));
+}
+
+// The box sum of D_o = (P(r) - P(wrap(r - o)))^2 over the patch around
+// frame position (qr, qc), positions clamped to the frame.
+__device__ __forceinline__ float box_sum_global(const float* __restrict__ img,
+                                                int h, int w, int pd, int hp,
+                                                int wp, int pr, int qr,
+                                                int qc, int dy, int dx) {
+  float s = 0.f;
+  for (int a = -pr; a <= pr; ++a) {
+    const int r = hf_clampi(qr + a, 0, hp - 1);
+    for (int b = -pr; b <= pr; ++b) {
+      const int c = hf_clampi(qc + b, 0, wp - 1);
+      const float d = frame_px(img, h, w, pd, hp, wp, r, c) -
+                      frame_px(img, h, w, pd, hp, wp, r - dy, c - dx);
+      s += d * d;
+    }
+  }
+  return s;
+}
+
+// The third geometry: one thread per output pixel, the window read from
+// global memory, the two box sums of each offset summed directly.
+__global__ void __launch_bounds__(NT)
+nlm_kernel_global(const float* __restrict__ img, float* __restrict__ out,
+                  int h, int w, int pd, int patch, float k2) {
+  const int j = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int i = blockIdx.y * NWARP + (threadIdx.x >> 5);
+  if (i >= h || j >= w) return;
+  const int pr = patch / 2;
+  const int hp = h + 2 * pd;
+  const int wp = w + 2 * pd;
+  const int qr = i + pd;  // frame position of the pixel
+  const int qc = j + pd;
+  float acc = frame_px(img, h, w, pd, hp, wp, qr, qc);
+  float wacc = 1.f;
+  for (int dy = 0; dy <= pd; ++dy) {
+    for (int dx = -pd; dx <= pd; ++dx) {
+      if (dy == 0 && dx <= 0) continue;
+      // +o term: w_o(q) P(q - o); -o term: w_o(q + o) P(q + o)
+      const float w_plus = exp2f(
+          -fmaxf(box_sum_global(img, h, w, pd, hp, wp, pr, qr, qc, dy, dx),
+                 0.f) * k2);
+      const float w_minus = exp2f(
+          -fmaxf(box_sum_global(img, h, w, pd, hp, wp, pr, qr + dy, qc + dx,
+                                dy, dx),
+                 0.f) * k2);
+      acc = acc + w_plus * frame_px(img, h, w, pd, hp, wp, qr - dy, qc - dx);
+      wacc = wacc + w_plus;
+      acc = acc + w_minus * frame_px(img, h, w, pd, hp, wp, qr + dy, qc + dx);
+      wacc = wacc + w_minus;
+    }
+  }
+  out[(size_t)i * w + j] = acc / fmaxf(wacc, 1e-12f);
+}
+
 }  // namespace
 
 HF_EXPORT int hf_nlm_f32(const float* img, float* out, int h, int w, int pd,
                          int patch, float h2, cudaStream_t stream) {
-  // the window, the weight field and a row of column sums are sized for
-  // pd + patch / 2 <= GeomLarge::PMAX
-  if (pd <= 0 || patch <= 0 || patch % 2 == 0 || pd >= h || pd >= w ||
-      pd + patch / 2 > GeomLarge::PMAX) {
+  if (pd <= 0 || patch <= 0 || patch % 2 == 0 || pd >= h || pd >= w) {
     return (int)cudaErrorInvalidValue;
   }
   // exp(-d2 / h^2) = exp2(-box_sum * log2(e) / (area * h^2))
   const float k2 =
       (float)(1.4426950408889634 / ((double)patch * patch * (double)h2));
-  return pd + patch / 2 <= GeomSmall::PMAX
-             ? nlm_launch<GeomSmall>(img, out, h, w, pd, patch, k2, stream)
-             : nlm_launch<GeomLarge>(img, out, h, w, pd, patch, k2, stream);
+  if (pd + patch / 2 <= GeomSmall::PMAX) {
+    return nlm_launch<GeomSmall>(img, out, h, w, pd, patch, k2, stream);
+  }
+  // the window, the weight field and a row of column sums fit in shared
+  // memory up to pd + patch / 2 = GeomLarge::PMAX
+  if (pd + patch / 2 <= GeomLarge::PMAX) {
+    return nlm_launch<GeomLarge>(img, out, h, w, pd, patch, k2, stream);
+  }
+  const dim3 grid((w + 31) / 32, (h + NWARP - 1) / NWARP);
+  nlm_kernel_global<<<grid, NT, 0, stream>>>(img, out, h, w, pd, patch, k2);
+  return (int)cudaGetLastError();
 }

@@ -35,16 +35,17 @@ def _stream(t: torch.Tensor) -> int:
 
 def nlm(img: torch.Tensor, h: float, patch_size: int,
         patch_distance: int) -> torch.Tensor:
-    """B1: fast-mode NLM of an (H, W) f32 image (csrc/nlm.cu); the block's
-    window and weight field fit in shared memory up to patch_distance +
-    patch_size // 2 = 72."""
+    """B1: fast-mode NLM of an (H, W) f32 image (csrc/nlm.cu), for any odd
+    patch_size and 0 < patch_distance < min(H, W), the TPU kernel's
+    domain: up to patch_distance + patch_size // 2 = 72 the block's window
+    and weight field sit in shared memory, beyond it the kernel reads the
+    window from global memory."""
     _require(img, "nlm img", (torch.float32,), 2)
     hh, ww = img.shape
-    if patch_size % 2 != 1 or not 0 < patch_distance < min(hh, ww) \
-            or patch_distance + patch_size // 2 > 72:
-        raise ValueError("nlm: odd patch_size, 0 < patch_distance < "
-                         "min(H, W) and patch_distance + patch_size // 2 "
-                         "<= 72 required")
+    if patch_size < 1 or patch_size % 2 != 1 \
+            or not 0 < patch_distance < min(hh, ww):
+        raise ValueError("nlm: odd patch_size and 0 < patch_distance < "
+                         "min(H, W) required")
     out = torch.empty_like(img)
     lib = _build.load()
     # h^2 rounded to f32 the way the reference computes jnp.float32(h * h)
@@ -56,14 +57,35 @@ def nlm(img: torch.Tensor, h: float, patch_size: int,
     return out
 
 
-def lpcv2d(img: torch.Tensor) -> torch.Tensor:
-    """B2: LP-CV enhancement of an (H, W) f32 image at patch_size=11,
-    phi_range=9, the stencil csrc/lpcv2d.cu holds as constants."""
+# the device copies of the larger B2 line tables, by table and device
+_lpcv2d_tables: dict = {}
+
+
+def lpcv2d(img: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """B2: LP-CV enhancement of an (H, W) f32 image (csrc/lpcv2d.cu) along
+    ``table``, line_table_2d(patch_size, phi_range) as a (phi_range,
+    patch_size, 2) array: odd patch_size up to 129, phi_range up to 128.
+    Stencils up to (11, 9) travel in the launch parameters; a larger one
+    is copied to the device once and read from there."""
     _require(img, "lpcv2d img", (torch.float32,), 2)
+    tab = np.ascontiguousarray(table, dtype=np.int32)
+    if tab.ndim != 3 or tab.shape[2] != 2:
+        raise ValueError("lpcv2d: table must be (phi_range, patch_size, 2)")
+    phi, patch = tab.shape[:2]
+    if patch % 2 != 1 or patch > 129 or not 1 <= phi <= 128:
+        raise ValueError("lpcv2d: odd patch_size <= 129 and 1 <= phi_range "
+                         "<= 128 required")
+    dev_ptr = None
+    if phi > 9 or patch > 11:
+        key = (tab.tobytes(), tab.shape, img.device)
+        if key not in _lpcv2d_tables:
+            _lpcv2d_tables[key] = torch.from_numpy(tab).to(img.device)
+        dev_ptr = _lpcv2d_tables[key].data_ptr()
     out = torch.empty_like(img)
     lib = _build.load()
     err = lib.hf_lpcv2d_f32(img.data_ptr(), out.data_ptr(), img.shape[0],
-                            img.shape[1], 11, 9, _stream(img))
+                            img.shape[1], patch, phi, tab.ctypes.data,
+                            dev_ptr, _stream(img))
     _build.check(lib, err, "lpcv2d")
     lpcv2d.launches += 1
     return out
@@ -77,6 +99,8 @@ def label_stats(labels: torch.Tensor, image: torch.Tensor | None,
 
     ``labels`` (N,) int32; ``image`` (N, C) f32 or bf16; ``aux`` (N,)
     int32; ``mask`` (N,) f32. Column order as segstats.LabelStats packs it.
+    The moments are summed exactly in a zeroed (num_segments, 5) int64
+    scratch allocated here, then rounded once to f32.
     """
     _require(labels, "label_stats labels", (torch.int32,), 1)
     n = labels.shape[0]
@@ -102,14 +126,17 @@ def label_stats(labels: torch.Tensor, image: torch.Tensor | None,
         + (1 if mask is not None else 0)
     acc = torch.zeros((num_segments, ncols), dtype=torch.float32,
                       device=labels.device)
+    mom = torch.zeros((num_segments, 5), dtype=torch.int64,
+                      device=labels.device) if moments else None
     lib = _build.load()
     err = lib.hf_label_stats(
         labels.data_ptr(), image.data_ptr() if image is not None else None,
         int(image is not None and image.dtype == torch.bfloat16),
         aux.data_ptr() if aux is not None else None,
         mask.data_ptr() if mask is not None else None,
-        acc.data_ptr(), n, h, w, nchan, num_segments, naux, int(moments),
-        int(mask is not None), ncols, _stream(labels))
+        acc.data_ptr(), mom.data_ptr() if mom is not None else None, n, h, w,
+        nchan, num_segments, naux, int(mask is not None), ncols,
+        _stream(labels))
     _build.check(lib, err, "label_stats")
     label_stats.launches += 1
     return acc
@@ -151,15 +178,24 @@ def stats_cm(labels: torch.Tensor, image: torch.Tensor,
     return acc
 
 
-def lpcv3d(vol: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """B6: 3D LP-CV of an (X, Z, Y) f32 volume at patch_size=11,
-    theta_range=9, phi_range=9 (csrc/lpcv3d.cu); ``bf16`` rounds the
-    samples to bf16 first."""
+def lpcv3d(vol: torch.Tensor, bf16: bool, patch_size: int = 11,
+           theta_range: int = 9, phi_range: int = 9) -> torch.Tensor:
+    """B6: 3D LP-CV of an (X, Z, Y) f32 volume (csrc/lpcv3d.cu); ``bf16``
+    rounds the samples to bf16 first. The library holds the default
+    configuration (11, 9, 9); any other (odd patch_size >= 3,
+    theta_range >= 2, phi_range >= 1) is compiled at its first use
+    (_build.load_lpcv3d)."""
     _require(vol, "lpcv3d vol", (torch.float32,), 3)
+    if patch_size < 3 or patch_size % 2 != 1 or theta_range < 2 \
+            or phi_range < 1:
+        raise ValueError("lpcv3d: odd patch_size >= 3, theta_range >= 2 "
+                         "and phi_range >= 1 required")
     out = torch.empty_like(vol)
     lib = _build.load()
-    err = lib.hf_lpcv3d(vol.data_ptr(), out.data_ptr(), *vol.shape, 11, 9, 9,
-                        int(bf16), _stream(vol))
+    cfg = (patch_size, theta_range, phi_range)
+    klib = lib if cfg == (11, 9, 9) else _build.load_lpcv3d(*cfg)
+    err = klib.hf_lpcv3d(vol.data_ptr(), out.data_ptr(), *vol.shape, *cfg,
+                         int(bf16), _stream(vol))
     _build.check(lib, err, "lpcv3d")
     lpcv3d.launches += 1
     return out

@@ -11,7 +11,12 @@ and one more nvcc links them:
 
 The library lands in ``build/torch_kernels/<hash>/`` at the repository
 root, where ``<hash>`` covers the sources and the flags, so an edited
-source rebuilds and an unchanged one is reused. ptxas reports each
+source rebuilds and an unchanged one is reused. Kernel B6 is compiled for
+one (patch, theta, phi) configuration, from a generated header of tables:
+the library holds the default (11, 9, 9); ``load_lpcv3d`` writes any other
+configuration's header into a directory of its own under ``<hash>/`` and
+compiles ``lpcv3d.cu`` once more against it into a library of its own
+(one nvcc call, seconds), at that configuration's first use. ptxas reports each
 kernel's registers, shared memory and spills (``-Xptxas -v``); the report
 of ``X.cu`` is kept beside the library as ``X.ptxas.txt``. The build
 happens at the first kernel launch, never at import. A missing nvcc or a
@@ -43,11 +48,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # img, out, h, w, pd, patch, h2, stream
     "hf_nlm_f32": (_P, _P, _I, _I, _I, _I, _F, _P),
-    # img, out, h, w, patch, phi, stream
-    "hf_lpcv2d_f32": (_P, _P, _I, _I, _I, _I, _P),
-    # labels, image, image_is_bf16, aux, mask, acc, n, h, w, nchan,
-    # num_segments, aux_classes, moments, has_mask, ncols, stream
-    "hf_label_stats": (_P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+    # img, out, h, w, patch, phi, line table (host), line table (device),
+    # stream
+    "hf_lpcv2d_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # labels, image, image_is_bf16, aux, mask, acc, moments scratch, n, h,
+    # w, nchan, num_segments, aux_classes, has_mask, ncols, stream
+    "hf_label_stats": (_P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                        _I, _I, _P),
     # labels, table, out, n, num_segments, stream
     "hf_label_lookup": (_P, _P, _P, _L, _I, _P),
@@ -146,6 +152,60 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = open_library(build())
     return _lib
+
+
+def lpcv3d_dir(patch: int, theta: int, phi: int,
+               csrc: Path = CSRC) -> tuple[Path, str]:
+    """(build directory, header text) of kernel B6 at a configuration; the
+    directory's name carries a hash of the header."""
+    from hiprfish_tpu_torch.kernels import gen_lpcv3d_tables
+
+    text = gen_lpcv3d_tables.header_text(patch, theta, phi)
+    tag = hashlib.sha256(text.encode()).hexdigest()[:12]
+    return build_dir(csrc) / f"lpcv3d_{patch}_{theta}_{phi}_{tag}", text
+
+
+def build_lpcv3d(patch: int, theta: int, phi: int,
+                 csrc: Path = CSRC) -> Path:
+    """Compile ``lpcv3d.cu`` against the generated header of (patch,
+    theta, phi) into its own library, if not built yet; raises with the
+    compiler's output when nvcc fails."""
+    out_dir, text = lpcv3d_dir(patch, theta, phi, csrc)
+    lib = out_dir / "liblpcv3d.so"
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    header = out_dir / f"lpcv3d_tables.{tag}.cuh"
+    header.write_text(text)
+    tmp = out_dir / f"liblpcv3d.so.{tag}"
+    cmd = [nvcc, *NVCC_FLAGS, f'-DHF_LP3D_TABLES="{header}"', "-shared",
+           "-o", str(tmp), str(csrc / "lpcv3d.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "lpcv3d.ptxas.txt").write_text(proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    os.replace(header, out_dir / "lpcv3d_tables.cuh")
+    return lib
+
+
+_lpcv3d_libs: dict = {}
+
+
+def load_lpcv3d(patch: int, theta: int, phi: int) -> ctypes.CDLL:
+    """The loaded B6 library of a configuration other than the default,
+    built on first use."""
+    key = (patch, theta, phi)
+    with _lock:
+        if key not in _lpcv3d_libs:
+            lib = ctypes.CDLL(str(build_lpcv3d(patch, theta, phi)))
+            lib.hf_lpcv3d.argtypes = list(SIGNATURES["hf_lpcv3d"])
+            lib.hf_lpcv3d.restype = ctypes.c_int
+            _lpcv3d_libs[key] = lib
+    return _lpcv3d_libs[key]
 
 
 def ptxas_report(stem: str, csrc: Path = CSRC) -> list[str]:

@@ -3,10 +3,12 @@ hiprfish_tpu/ops/line_profile.py and of the 3D chunk sweep of
 hiprfish_tpu/pipeline/segment3d.py).
 
 ``lp_cv_enhance_2d`` is the wrapper of kernel B2 (csrc/lpcv2d.cu), which
-holds the patch_size=11, phi_range=9 offset table as constants.
+takes the line table of any (patch_size, phi_range) as an argument.
 ``lp_cv_enhance_3d`` is the wrapper of kernel B6 (csrc/lpcv3d.cu), whose
-72x11 offset table and quartile selection network are the generated header
-csrc/lpcv3d_tables.cuh (kernels/gen_lpcv3d_tables.py). The tables are
+offset table and quartile selection network are a generated header
+(kernels/gen_lpcv3d_tables.py): the committed csrc/lpcv3d_tables.cuh for
+the default (11, 9, 9), and one written and compiled into the build
+directory at the first use of any other configuration. The tables are
 built in numpy here for the plain versions: the reference's modules import
 jax, so its ``line_table_2d``/``line_table_3d``/``selection_network`` cannot
 be imported where jax is absent (tests hold these tables, the kernel's
@@ -14,6 +16,8 @@ constants and the header equal to the reference's).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -56,6 +60,10 @@ def line_table_2d(patch_size: int = 11, phi_range: int = 9) -> np.ndarray:
                     table[phi, li, a] = _line_coords_1axis(
                         ivals[a], line_n, li, increment)
     return table
+
+
+# the kernel's copy, computed once per stencil (read only)
+_line_table_2d_cached = functools.lru_cache(maxsize=None)(line_table_2d)
 
 
 def line_table_3d(patch_size: int = 11, theta_range: int = 9,
@@ -176,10 +184,8 @@ def lp_cv_enhance_2d(image: torch.Tensor, patch_size: int = 11,
                      phi_range: int = 9) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, the plain version on a CPU tensor."""
     if image.device.type == "cuda":
-        if (patch_size, phi_range) != (11, 9):
-            raise ValueError("lp_cv_enhance_2d: kernel B2 is built for "
-                             "patch_size=11, phi_range=9")
-        return kernels.lpcv2d(image.to(torch.float32).contiguous())
+        return kernels.lpcv2d(image.to(torch.float32).contiguous(),
+                              _line_table_2d_cached(patch_size, phi_range))
     if image.device.type == "cpu":
         return lp_cv_enhance_2d_plain(image, patch_size, phi_range)
     raise ValueError(f"lp_cv_enhance_2d: unsupported device {image.device}")
@@ -243,13 +249,11 @@ def lp_cv_enhance_3d(volume: torch.Tensor, patch_size: int = 11,
     if layout not in ("xyz", "xzy"):
         raise ValueError(f"lp_cv_enhance_3d: unknown layout {layout!r}")
     if volume.device.type == "cuda":
-        if (patch_size, theta_range, phi_range) != (11, 9, 9):
-            raise ValueError("lp_cv_enhance_3d: kernel B6 is built for "
-                             "patch_size=11, theta_range=9, phi_range=9")
         v = volume.to(torch.float32)
         if layout == "xyz":
             v = v.permute(0, 2, 1)
-        out = kernels.lpcv3d(v.contiguous(), bf16 is not False)
+        out = kernels.lpcv3d(v.contiguous(), bf16 is not False, patch_size,
+                             theta_range, phi_range)
         return out if layout == "xzy" else out.permute(0, 2, 1).contiguous()
     if volume.device.type == "cpu":
         return lp_cv_enhance_3d_plain(volume, patch_size, theta_range,

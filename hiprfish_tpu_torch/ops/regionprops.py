@@ -39,17 +39,23 @@ def mean_intensities(labels: torch.Tensor, image: torch.Tensor,
 def shape_props_2d(labels: torch.Tensor, num_segments: int) -> dict:
     """Per-label 2D shape properties: dict of (num_segments,) tensors area,
     centroid_r, centroid_c, major_axis_length, minor_axis_length,
-    eccentricity, orientation."""
+    eccentricity, orientation.
+
+    The raw moments are int64 sums rounded once to f32, so they are exact
+    and the same in every run: f32 sums of r^2 (~4e6 per pixel at 2000^2)
+    round in the order the card's atomics add them, and the minor axis
+    (mu20 = E[r^2] - E[r]^2 cancels ~1e6 against ~1e6) then moves between
+    runs enough to flip a cell at the shape gate."""
     h, w = labels.shape
     ids = labels.reshape(-1).to(torch.int64)
     dev = labels.device
-    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None] \
+    rows = torch.arange(h, dtype=torch.int64, device=dev)[:, None] \
         .expand(h, w).reshape(-1)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :] \
+    cols = torch.arange(w, dtype=torch.int64, device=dev)[None, :] \
         .expand(h, w).reshape(-1)
     feats = torch.stack([torch.ones_like(rows), rows, cols, rows * rows,
                          cols * cols, rows * cols], dim=-1)
-    sums = _segment_sum(feats, ids, num_segments)
+    sums = _segment_sum(feats, ids, num_segments).to(torch.float32)
     n = torch.clamp(sums[:, 0], min=1.0)
     rbar = sums[:, 1] / n
     cbar = sums[:, 2] / n

@@ -5,7 +5,10 @@
 (csrc/segstats.cu). The reference's banded one-hot matmuls, window spill
 flags and exact fallbacks were the TPU's way around a slow scatter; here a
 per-label reduction is a scatter-add (plain version) or an atomic kernel,
-exact for any label image, so ``spill`` is always False. Semantics kept
+exact for any label image, so ``spill`` is always False. Every column
+whose terms are integers (count, border, moments, aux histogram, a 0/1
+mask's count) comes out exact and the same in every run, on either
+device: the moments are int64 sums rounded once to f32. Semantics kept
 from the reference's fast path: ids are clipped to [0, num_segments - 1],
 label 0 never accumulates (row 0 stays zero), and a lookup gives 0.0 for
 label <= 0.
@@ -59,21 +62,23 @@ def label_stats_table_plain(labels: torch.Tensor, image, aux, mask,
                             moments: bool, h: int, w: int) -> torch.Tensor:
     """Plain-torch twin of kernel B3: the (num_segments, ncols) f32 table
     [count, border, moments?, channel sums (x mask)?, aux hist?, mask?]
-    from flat (N,) labels, (N, C) image, (N,) aux and (N,) mask."""
+    from flat (N,) labels, (N, C) image, (N,) aux and (N,) mask. The
+    moments are int64 sums rounded once to f32, as the kernel's."""
     ids = torch.clamp(labels.to(torch.int64), 0, num_segments - 1)
     sel = torch.nonzero(ids > 0).squeeze(1)
     ids = ids[sel]
-    gidx = sel
-    row = gidx // w
-    col = gidx % w
+    row = sel // w
+    col = sel % w
     border = (row == 0) | (row == h - 1) | (col == 0) | (col == w - 1)
     cols = [torch.ones((sel.shape[0], 1), dtype=torch.float32,
                        device=labels.device),
             border.to(torch.float32)[:, None]]
+    mom = None
     if moments:
-        rf = row.to(torch.float32)
-        cf = col.to(torch.float32)
-        cols.append(torch.stack([rf, cf, rf * rf, cf * cf, rf * cf], dim=1))
+        mom = torch.zeros((num_segments, 5), dtype=torch.int64,
+                          device=labels.device).index_add_(
+            0, ids, torch.stack([row, col, row * row, col * col, row * col],
+                                dim=1))
     mb = None if mask is None else mask[sel].to(torch.float32)
     if image is not None:
         ib = image[sel].to(torch.float32)
@@ -86,8 +91,10 @@ def label_stats_table_plain(labels: torch.Tensor, image, aux, mask,
         cols.append(mb[:, None])
     feat = torch.cat(cols, dim=1)
     acc = torch.zeros((num_segments, feat.shape[1]), dtype=torch.float32,
-                      device=labels.device)
-    return acc.index_add_(0, ids, feat)
+                      device=labels.device).index_add_(0, ids, feat)
+    if mom is None:
+        return acc
+    return torch.cat([acc[:, :2], mom.to(torch.float32), acc[:, 2:]], dim=1)
 
 
 def label_stats(labels: torch.Tensor, image: torch.Tensor | None,

@@ -39,6 +39,16 @@ def test_nlm_plain_matches_xla_whole_frame(shape, seed):
     np.testing.assert_allclose(out, ref, rtol=0, atol=5e-6)
 
 
+def test_nlm_plain_matches_xla_past_the_shared_memory_window():
+    # pd + patch // 2 = 73: kernel B1 reads its window from global memory
+    # there; its plain twin holds the XLA formulation as at (7, 11)
+    img = smooth_image((72, 80), 3)
+    ref = np.asarray(jdn.denoise_nl_means(jnp.asarray(img), 0.02, 15, 66))
+    out = tdn.denoise_nl_means(torch.from_numpy(img), 0.02, 15, 66).numpy()
+    assert np.abs(ref - img).max() > 1e-3
+    np.testing.assert_allclose(out, ref, rtol=0, atol=5e-6)
+
+
 def test_nlm_wrapper_takes_plain_version_on_cpu():
     img = torch.from_numpy(smooth_image((40, 48), 2))
     before = kernels.nlm.launches

@@ -200,3 +200,24 @@ def test_shape_props_2d():
     for k in ref:
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_shape_props_2d_moments_are_exact_integer_sums():
+    # cells in rows 2900-2999 of a 3000 x 8 image: f32 sums of r^2 there
+    # round in the order they are added; the port sums the raw moments in
+    # int64 and rounds once, so area and centroids follow numpy's int64
+    # sums rounded to f32 exactly
+    rng = np.random.RandomState(3)
+    lab = np.zeros((3000, 8), np.int32)
+    for i, r in enumerate(range(2900, 3000, 10)):
+        lab[r:r + 7, rng.randint(0, 2):rng.randint(5, 9)] = i + 1
+    out = trp.shape_props_2d(torch.from_numpy(lab), 16)
+    rows, cols = np.nonzero(np.ones_like(lab))   # row 0 is the background
+    want = np.zeros((16, 3), np.int64)
+    np.add.at(want, lab[rows, cols],
+              np.stack([np.ones_like(rows), rows, cols], axis=1))
+    want = want.astype(np.float32)
+    n = np.maximum(want[:, 0], np.float32(1))
+    np.testing.assert_array_equal(out["area"].numpy(), want[:, 0])
+    np.testing.assert_array_equal(out["centroid_r"].numpy(), want[:, 1] / n)
+    np.testing.assert_array_equal(out["centroid_c"].numpy(), want[:, 2] / n)

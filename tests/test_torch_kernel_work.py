@@ -65,6 +65,28 @@ def test_nlm_ops_per_pixel_and_offset():
                          row_bytes=190, px_bytes=8, segments=16384),
      158000 * 144, 12 * 2000 ** 2 + 158000 * 190 + 4 * 16384 * 144,
      0.02610662208955224, "bytes"),
+    # B3, counts only (seed filters, small holes): the labels and the
+    # two-column table
+    ("label_stats", dict(pixels=2000 ** 2, labelled=158000, ncols=2,
+                         row_bytes=0, segments=16384),
+     158000 * 2, 4 * 2000 ** 2 + 4 * 16384 * 2, 0.004815245373134328,
+     "bytes"),
+    # B3, counts + the 41-class erosion-depth histogram: an int32 class per
+    # pixel, 43 columns
+    ("label_stats", dict(pixels=2000 ** 2, labelled=158000, ncols=43,
+                         row_bytes=0, px_bytes=4, segments=16384),
+     158000 * 43, 8 * 2000 ** 2 + 4 * 16384 * 43, 0.010393447164179104,
+     "bytes"),
+    # B3, counts on a 3D tile's (360 + 2 x 64) x 170 x 2020 labels with
+    # 3e7 labelled voxels and 8192 segments
+    ("label_stats", dict(pixels=488 * 170 * 2020, labelled=30_000_000,
+                         ncols=2, row_bytes=0, segments=8192),
+     30_000_000 * 2, 4 * 488 * 170 * 2020 + 4 * 8192 * 2,
+     0.20011413014925372, "bytes"),
+    # B4 on the same tile: 1.34 GB of labels in and values out
+    ("label_lookup", dict(pixels=488 * 170 * 2020, segments=8192),
+     488 * 170 * 2020, 8 * 488 * 170 * 2020 + 4 * 8192, 0.4001989158208955,
+     "bytes"),
     # B5: a (63, 2, 2020, 2020) slab with 3.5e6 labelled voxels
     ("stats_cm", dict(pixels=2 * 2020 ** 2, labelled=3_500_000, ncols=64,
                       row_bytes=126, segments=16384),

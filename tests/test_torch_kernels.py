@@ -68,7 +68,7 @@ def _labels(shape, seed=0):
 
 @pytest.mark.parametrize("call", [
     lambda t: kernels.nlm(t, 0.02, 7, 11),
-    lambda t: kernels.lpcv2d(t),
+    lambda t: kernels.lpcv2d(t, line_profile.line_table_2d()),
     lambda t: kernels.label_stats(t.reshape(-1).to(torch.int32), None, None,
                                   None, 8, 0, False, *t.shape),
     lambda t: kernels.label_lookup(t.to(torch.int32), torch.ones(8)),
@@ -133,7 +133,9 @@ def test_reset_launches():
     ((96, 160), 7, 11), ((70, 53), 7, 11), ((300, 257), 7, 11),
     ((24, 30), 7, 11), ((37, 200), 7, 11), ((130, 203), 7, 11),
     ((96, 160), 7, 15), ((24, 30), 7, 20), ((130, 203), 9, 40),
-    ((150, 171), 7, 69)])
+    ((150, 171), 7, 69),
+    # past pd + patch / 2 = 72 the window is read from global memory
+    ((96, 160), 7, 80), ((90, 83), 15, 66)])
 def test_nlm_kernel_matches_plain(cuda, shape, patch, pd):
     img = torch.from_numpy(_smooth(shape)).to(cuda)
     out = kernels.nlm(img, 0.02, patch, pd)
@@ -142,11 +144,17 @@ def test_nlm_kernel_matches_plain(cuda, shape, patch, pd):
 
 
 @pytest.mark.cuda
+# (11, 9) the main path's stencil, (7, 5) a smaller one (launch
+# parameters), (15, 12) a larger one with interpolated quartiles (device
+# memory)
+@pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5), (15, 12)])
 @pytest.mark.parametrize("shape", [(96, 160), (33, 41)])
-def test_lpcv2d_kernel_matches_plain(cuda, shape):
+def test_lpcv2d_kernel_matches_plain(cuda, shape, patch, phi):
     img = torch.from_numpy(_smooth(shape, 1)).to(cuda)
-    out = line_profile.lp_cv_enhance_2d(img)
-    ref = line_profile.lp_cv_enhance_2d_plain(img)
+    before = kernels.lpcv2d.launches
+    out = line_profile.lp_cv_enhance_2d(img, patch, phi)
+    assert kernels.lpcv2d.launches == before + 1
+    ref = line_profile.lp_cv_enhance_2d_plain(img, patch, phi)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
 
@@ -165,7 +173,50 @@ def test_label_stats_kernel_matches_plain(cuda, dtype):
             mask.reshape(-1), 48, 4, True, 64, 96)
     out = kernels.label_stats(*args)
     ref = segstats.label_stats_table_plain(*args)
-    torch.testing.assert_close(out[:, :2], ref[:, :2], rtol=0, atol=0)
+    # count, border, moments, aux histogram and 0/1 mask count: bitwise
+    exact = list(range(7)) + list(range(14, 19))
+    assert torch.equal(out[:, exact], ref[:, exact])
+    torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-4)
+
+
+def _b3_args(cuda, kind, shape=(192, 256), seed=6):
+    """B3's column sets on the main paths: counts only, counts + a
+    41-class aux histogram, and the 10-bit set (95 bf16 channels, moments,
+    aux, 0/1 mask); the labels are cells of a few px to ~30 px per row."""
+    rng = np.random.RandomState(seed)
+    h, w = shape
+    lab = np.zeros(shape, np.int32)
+    for i in range(1, 120):
+        r, c = rng.randint(0, h - 4), rng.randint(0, w - 4)
+        lab[r:r + rng.randint(2, 20), c:c + rng.randint(2, 40)] = i
+    lab[0, :3] = [5, 500, -2]                  # clipped and negative ids
+    flat = torch.from_numpy(lab).to(cuda).reshape(-1)
+    aux = torch.from_numpy(rng.randint(-1, 42, h * w).astype(np.int32)) \
+        .to(cuda)
+    if kind == "counts":
+        return (flat, None, None, None, 256, 0, False, h, w)
+    if kind == "aux":
+        return (flat, None, aux, None, 256, 41, False, h, w)
+    img = torch.from_numpy(rng.rand(h * w, 95).astype(np.float32)).to(cuda) \
+        .to(torch.bfloat16)
+    mask = torch.from_numpy((rng.rand(h * w) > 0.3).astype(np.float32)) \
+        .to(cuda)
+    return (flat, img, aux, mask, 256, 41, True, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["counts", "aux", "10bit"])
+def test_label_stats_integer_columns_bitwise_and_repeatable(cuda, kind):
+    args = _b3_args(cuda, kind)
+    out = kernels.label_stats(*args)
+    again = kernels.label_stats(*args)
+    ref = segstats.label_stats_table_plain(*args)
+    nchan = 0 if args[1] is None else args[1].shape[1]
+    nmom = 5 if args[6] else 0
+    exact = [c for c in range(out.shape[1])
+             if not 2 + nmom <= c < 2 + nmom + nchan]
+    assert torch.equal(out[:, exact], ref[:, exact])
+    assert torch.equal(out[:, exact], again[:, exact])
     torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-4)
 
 
@@ -175,6 +226,26 @@ def test_label_lookup_kernel_matches_plain(cuda):
     lab[0, :5] = torch.tensor([-3, 0, 100, 47, 48], device=cuda)
     table = torch.rand(48, device=cuda) + 1.0
     out = kernels.label_lookup(lab, table)
+    torch.testing.assert_close(out, segstats.label_lookup_plain(lab, table),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+# n % 4 != 0 (the scalar tail), and contiguous views whose storage offset
+# leaves the labels off 16-byte alignment (the scalar head; the output is
+# then stored pixel by pixel)
+@pytest.mark.parametrize("n,offset", [(4001, 0), (7, 0), (3, 0), (4000, 1),
+                                      (4003, 2), (4097, 3)])
+def test_label_lookup_kernel_ragged_and_misaligned(cuda, n, offset):
+    rng = np.random.RandomState(n + offset)
+    base = torch.from_numpy(rng.randint(-2, 60, n + offset)
+                            .astype(np.int32)).to(cuda)
+    lab = base[offset:]
+    assert lab.is_contiguous() and lab.storage_offset() == offset
+    table = torch.rand(48, device=cuda) + 1.0
+    before = kernels.label_lookup.launches
+    out = segstats.label_lookup(lab, table)
+    assert kernels.label_lookup.launches == before + 1
     torch.testing.assert_close(out, segstats.label_lookup_plain(lab, table),
                                rtol=0, atol=0)
 
@@ -216,6 +287,22 @@ def test_lpcv3d_kernel_matches_plain(cuda, bf16, shape):
     out = line_profile.lp_cv_enhance_3d(vol, bf16=bf16, layout="xzy")
     ref = line_profile.lp_cv_enhance_3d_plain(vol, bf16=bf16, layout="xzy")
     # f32 summation order of the 72-orientation mean
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("shape", [(20, 12, 40), (9, 7, 33)])
+def test_lpcv3d_kernel_other_configuration(cuda, bf16, shape):
+    # (7, 5, 6): 24 orientations of 7 samples, compiled at first use from
+    # its own generated header
+    vol = torch.from_numpy(_volume(shape, 5)).to(cuda)
+    before = kernels.lpcv3d.launches
+    out = line_profile.lp_cv_enhance_3d(vol, 7, 5, 6, bf16=bf16,
+                                        layout="xzy")
+    assert kernels.lpcv3d.launches == before + 1
+    ref = line_profile.lp_cv_enhance_3d_plain(vol, 7, 5, 6, bf16=bf16,
+                                              layout="xzy")
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
 
@@ -306,15 +393,12 @@ def test_label_stats_kernel_ecoli_columns(cuda):
     args = (lab, img, aux, mask, 64, 41, True, 192, 192)
     out = kernels.label_stats(*args)
     ref = segstats.label_stats_table_plain(*args)
-    exact = [0, 1] + list(range(7 + 95, 7 + 95 + 41 + 1))
+    # count, border, moments (int64 sums rounded once), aux histogram and
+    # mask count: bitwise
+    exact = list(range(7)) + list(range(7 + 95, 7 + 95 + 41 + 1))
     torch.testing.assert_close(out[:, exact], ref[:, exact], rtol=0, atol=0)
     torch.testing.assert_close(out[:, 7:7 + 95], ref[:, 7:7 + 95],
                                rtol=2.0 ** -16, atol=1e-4)
-    # moments: any two f32 summation orders of n terms within
-    # 2 (n - 1) 2^-24 of the sum
-    n_max = float(ref[:, 0].max())
-    torch.testing.assert_close(out[:, 2:7], ref[:, 2:7],
-                               rtol=2 * n_max * 2.0 ** -24, atol=1e-3)
 
 
 @pytest.mark.cuda

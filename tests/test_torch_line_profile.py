@@ -1,7 +1,6 @@
 """Port parity: 2D LP-CV (kernel B2's plain version) and its offset table
 vs the JAX package on the CPU."""
 
-import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -21,15 +20,17 @@ def test_line_table_2d_equal(patch, phi):
                                   jlp.line_table_2d(patch, phi))
 
 
-def test_kernel_line_table_equal():
-    # kernel B2 holds the patch=11, phi=9 table as constants in its source
+@pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5), (15, 12)])
+def test_kernel_line_table_equal(patch, phi):
+    # kernel B2 takes its line table as an argument: the wrapper hands it
+    # the (cached) line_table_2d of the stencil asked for; stencils up to
+    # (11, 9) travel in the launch parameters, larger ones in device memory
+    np.testing.assert_array_equal(tlp._line_table_2d_cached(patch, phi),
+                                  jlp.line_table_2d(patch, phi))
     src = (Path(tlp.__file__).parent.parent / "csrc" / "lpcv2d.cu") \
         .read_text()
-    body = re.search(r"kLine\[PHI\]\[PATCH\]\[2\] = \{(.*?)\};", src,
-                     re.S).group(1)
-    table = np.array([int(v) for v in re.findall(r"-?\d+", body)])
-    np.testing.assert_array_equal(table.reshape(9, 11, 2),
-                                  jlp.line_table_2d(11, 9))
+    assert "constexpr int SPHI = 9;" in src
+    assert "constexpr int SPATCH = 11;" in src
 
 
 def test_line_table_t9_quartile_ranks_exact():
@@ -38,8 +39,13 @@ def test_line_table_t9_quartile_ranks_exact():
     assert 0.25 * (9 - 1) == 2.0 and 0.75 * (9 - 1) == 6.0
 
 
-@pytest.mark.parametrize("kind", ["noise", "smooth"])
-def test_lp_cv_enhance_2d_plain_matches_jax(kind):
+# (7, 5) and (15, 12) are stencils kernel B2 takes besides the default:
+# the first in its launch parameters, the second (interpolated quartiles)
+# from device memory
+@pytest.mark.parametrize("kind,patch,phi", [
+    ("noise", 11, 9), ("smooth", 11, 9), ("smooth", 7, 5),
+    ("smooth", 15, 12)])
+def test_lp_cv_enhance_2d_plain_matches_jax(kind, patch, phi):
     rng = np.random.RandomState(3)
     if kind == "noise":
         img = rng.rand(64, 96).astype(np.float32)
@@ -47,6 +53,6 @@ def test_lp_cv_enhance_2d_plain_matches_jax(kind):
         yy, xx = np.mgrid[:64, :96].astype(np.float32)
         img = (0.5 + 0.3 * np.sin(yy / 7.0) * np.cos(xx / 5.0)
                + 0.01 * rng.randn(64, 96)).astype(np.float32)
-    ref = np.asarray(jlp.lp_cv_enhance_2d(jnp.asarray(img), 11, 9))
-    out = tlp.lp_cv_enhance_2d(torch.from_numpy(img), 11, 9).numpy()
+    ref = np.asarray(jlp.lp_cv_enhance_2d(jnp.asarray(img), patch, phi))
+    out = tlp.lp_cv_enhance_2d(torch.from_numpy(img), patch, phi).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)

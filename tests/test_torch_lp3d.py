@@ -68,6 +68,35 @@ def test_header_is_the_generator_output():
     assert HEADER.read_text() == gen_lpcv3d_tables.header_text()
 
 
+@pytest.mark.parametrize("patch,theta,phi", [(7, 5, 6), (5, 3, 4)])
+def test_generated_header_of_other_configurations(patch, theta, phi):
+    # the header the build writes for a non-default configuration holds
+    # the reference's line table, quartile ranks and selection network
+    text = gen_lpcv3d_tables.header_text(patch, theta, phi)
+    n_orient = (theta - 1) * phi
+    defs = {k: int(re.search(rf"#define HF_LP3D_{k} (\d+)", text).group(1))
+            for k in ("NORIENT", "PATCH", "THETA", "PHI", "LO25", "HI25",
+                      "LO75", "HI75")}
+    (lo25, hi25, _), (lo75, hi75, _) = lp3d_pallas._quartile_ranks(n_orient)
+    assert defs == {"NORIENT": n_orient, "PATCH": patch, "THETA": theta,
+                    "PHI": phi, "LO25": lo25, "HI25": hi25, "LO75": lo75,
+                    "HI75": hi75}
+    body = text[text.index("#define HF_LP3D_LINES(L, S)"):
+                text.index("#define HF_LP3D_SELECT(CX)")]
+    table = np.array(re.findall(r"S\((-?\d+), (-?\d+), (-?\d+)\)", body),
+                     dtype=np.int64)
+    np.testing.assert_array_equal(table.reshape(n_orient, patch, 3),
+                                  jlp.line_table_3d(patch, theta, phi))
+    macro = text[text.index("#define HF_LP3D_SELECT(CX)"):]
+    pairs = [(int(a), int(b))
+             for a, b in re.findall(r"CX\((\d+), (\d+)\)", macro)]
+    assert pairs == list(lp3d_pallas.selection_network(
+        n_orient, (lo25, hi25, lo75, hi75)))
+    each = re.search(r"#define HF_LP3D_EACH\(M, (.*?)\) (.*)", text)
+    assert len(each.group(1).split(", ")) == patch - 1
+    assert each.group(2).count("M(") == patch - 1
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_selection_network_gives_exact_order_statistics(seed):
     # the committed network applied to random rows (with ties) leaves the
@@ -98,6 +127,18 @@ def test_lp_cv_enhance_3d_plain_matches_jax(bf16, layout):
                                layout)
     assert out.shape == vol.shape and out.dtype == torch.float32
     # f32 summation order of the 72-orientation mean: a few ulps
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_lp_cv_enhance_3d_plain_matches_jax_other_configuration(bf16):
+    # (7, 5, 6): 24 orientations of 7 samples, interpolated quartiles
+    vol = np.ascontiguousarray(_volume((20, 18, 12), 4).transpose(0, 2, 1))
+    cfg = JConfig(patch_size=7, theta_range=5, phi_range=6)
+    ref = np.asarray(jseg3d.lp_cv_enhance_3d_chunked(
+        jnp.asarray(vol), cfg, 16, bf16, "xzy"))
+    out = tlp.lp_cv_enhance_3d(torch.from_numpy(vol), 7, 5, 6, 16, bf16,
+                               "xzy")
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
 
 

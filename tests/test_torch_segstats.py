@@ -73,6 +73,33 @@ def test_label_stats_all_columns():
                                rtol=1e-6, atol=1e-6)
 
 
+def test_label_stats_moments_are_exact_integer_sums():
+    # cells in rows 2900-2999 of a 3000 x 8 image: per-pixel r^2 ~ 8.7e6,
+    # so per-cell f32 sums of r^2 (~1e9) round in the order they are added;
+    # the port sums them in int64 and rounds once, like numpy's int64 sums
+    rng = np.random.RandomState(7)
+    lab = np.zeros((3000, 8), np.int32)
+    for i, r in enumerate(range(2900, 3000, 10)):
+        lab[r:r + 7, rng.randint(0, 2):rng.randint(5, 9)] = i + 1
+    out = tseg.label_stats(torch.from_numpy(lab), None, 16, moments=True)
+    rows, cols = np.nonzero(lab)
+    ids = lab[rows, cols]
+    terms = np.stack([rows, cols, rows * rows, cols * cols, rows * cols],
+                     axis=1).astype(np.int64)
+    want = np.zeros((16, 5), np.int64)
+    np.add.at(want, ids, terms)
+    assert int(want[:, 2].max()) > 2 ** 28    # an f32 ulp is 32 there
+    np.testing.assert_array_equal(out.moments.numpy(),
+                                  want.astype(np.float32))
+    # the JAX package sums in f32: within 2 (n - 1) 2^-24 of the sum
+    ref = jseg.label_stats(jnp.asarray(lab), None, 16, moments=True)
+    n = np.maximum(np.asarray(ref.counts), 1.0)[:, None]
+    tol = 2.0 * (n - 1) * 2.0 ** -24 * np.abs(want).astype(np.float64)
+    err = np.abs(np.asarray(ref.moments, np.float64)
+                 - out.moments.numpy().astype(np.float64))
+    assert (err <= tol).all()
+
+
 def test_label_stats_clips_ids_and_skips_label_zero():
     lab = np.array([[0, 1, 200], [2, 200, 0]], np.int32)
     st = tseg.label_stats(torch.from_numpy(lab), None, 8)
