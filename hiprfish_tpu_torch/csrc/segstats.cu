@@ -44,21 +44,35 @@
 //
 // hf_stats_cm replaces hiprfish_tpu/ops/segstats_pallas.py::stats_cm_pallas
 // (body _stats_cm_kernel), the streamed 3D measurement's per-label
-// [count, C channel sums] of a CHANNELS-MAJOR (C, n) f32 or bf16 image into
-// a zeroed (num_segments, 1 + C) float32 table. Ids outside
+// [count, C channel sums] of a CHANNELS-MAJOR (C, n) f32 or bf16 image,
+// added into a (num_segments, 1 + C) float32 table the caller passes (the
+// streamed measurement keeps one for the whole volume). Ids outside
 // [1, num_segments) add nothing (label 0 is background; the reference's
-// window drops ids past the table). Bound on the H100: HBM reads of the
-// image, 1 GB per (63, 2, 2020, 2020) bf16 z-chunk, of which only labelled
-// pixels' sectors are read. Design: a warp takes 32 consecutive pixels and
-// skips them at once when all are background; a channel row c*n + p is
-// contiguous over the lanes, so each lane reads its label once and loops
-// over the channels with coalesced reads. Neighbouring voxels almost always
-// share a label, so the lanes first find the runs of equal ids (ballot of
-// run heads), sum each channel over its run with a segmented shuffle scan,
-// and only the run's last lane issues the atomicAdd: one atomic per run
-// and channel instead of one per voxel and channel. Counts are integers
-// (exact below 2^24); sums round in a run-dependent order. Offsets are
-// 64-bit (c * n passes 2^31 once a z-chunk holds more than 4 planes).
+// window drops ids past the table). Counts are integers (exact below
+// 2^24); sums round in a run-dependent order. Offsets are 64-bit (c * n
+// passes 2^31 once a z-chunk holds more than 4 planes).
+// Bound on the H100: HBM reads of the labels and of the labelled pixels'
+// channel rows (a bf16 (63, 2, 2020, 2020) z-chunk is 1 GB, a fifth of it
+// labelled) — but the adds into the table are atomics, one per run of equal
+// ids and column at least, and those set its time on the card: with one
+// scalar atomic per run and column this design was 1.7x slower than with
+// the 16-byte atomics below, on the same loads.
+// Design: a warp takes 256 consecutive pixels, 8 per lane (two int4 label
+// loads), and skips them when all are background. Each channel row
+// c * n + p is contiguous: a lane reads its 8 pixels of a row with one
+// 16-byte load (two for f32), a lane of background skips its load, and 4
+// columns' loads are in flight together. A lane sums its runs of equal ids
+// in registers; a run that crosses lanes is the last run of one lane,
+// whole lanes, and the first run of another, combined by a segmented
+// shuffle scan whose segments start where a lane holds several runs or
+// its first id differs from the previous lane's last. Each run then adds
+// its 4 columns with one 16-byte atomicAdd(float4*) (sm_90), a quarter of
+// the atomics; the count column rides in the first group. A view off
+// 16-byte alignment or n % 8 != 0 takes element-wise loads, and a table
+// whose rows are not 16-byte groups scalar atomics, in the same kernel.
+// (Staging each 256-pixel span's channel rows in shared memory with
+// cp.async.bulk copies, double-buffered, before the same reduction was
+// slower on the card and was dropped.)
 //
 // hf_label_lookup replaces hiprfish_tpu/ops/segstats_pallas.py::
 // lookup_pallas (body _lookup_kernel): out[p] = table[clip(l, 0, n - 1)] as
@@ -242,43 +256,193 @@ __global__ void moments_to_table(const unsigned long long* __restrict__ mom,
       __ll2float_rn((long long)mom[i]);
 }
 
-template <bool BF16>
-__global__ void stats_cm_kernel(const int* __restrict__ labels,
-                                const void* __restrict__ image,
-                                float* __restrict__ acc, long long n,
-                                int nchan, int num_segments) {
-  constexpr unsigned kFull = 0xffffffffu;
+// B5: pixels per lane (one 16-byte bf16 load, two f32 ones), pixels per
+// warp step, and table columns per group (loaded together, added by one
+// 16-byte atomic)
+constexpr int CM_VPX = 8;
+constexpr int CM_SPAN = 32 * CM_VPX;
+constexpr int CM_G = 4;
+
+// The lane's 8 pixels p .. p + 7 of channel row `row` (element offset) as
+// f32: 16-byte loads when VEC (the row 16-byte aligned, all 8 pixels in
+// range), else one element at a time up to n.
+template <bool BF16, bool VEC>
+__device__ __forceinline__ void load8(const void* __restrict__ image,
+                                      long long row, long long p,
+                                      long long n, float v[CM_VPX]) {
+  if (VEC) {
+    if (BF16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          reinterpret_cast<const __nv_bfloat16*>(image) + row + p));
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else {
+      const float4* f = reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(image) + row + p);
+      const float4 a = __ldg(f), b = __ldg(f + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < CM_VPX; ++i) {
+      v[i] = p + i < n ? load_px<BF16>(image, row + p + i) : 0.f;
+    }
+  }
+}
+
+// Add s[0..3] to columns col .. col + 3 of a table row: one 16-byte atomic
+// when VATOM (the row's columns come in aligned groups of 4), else one
+// per column below ncols.
+template <bool VATOM>
+__device__ __forceinline__ void add4(float* trow, int col, long long ncols,
+                                     const float s[CM_G]) {
+  if (VATOM) {
+    atomicAdd(reinterpret_cast<float4*>(trow + col),
+              make_float4(s[0], s[1], s[2], s[3]));
+  } else {
+#pragma unroll
+    for (int u = 0; u < CM_G; ++u) {
+      if (col + u < ncols) atomicAdd(trow + col + u, s[u]);
+    }
+  }
+}
+
+template <bool BF16, bool VEC, bool VATOM>
+__global__ void __launch_bounds__(256)
+stats_cm_kernel(const int* __restrict__ labels,
+                const void* __restrict__ image, float* __restrict__ acc,
+                long long n, int nchan, int num_segments) {
   const int lane = threadIdx.x & 31;
   const long long warp =
       (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const long long nwarps = (gridDim.x * (long long)blockDim.x) >> 5;
   const long long ncols = nchan + 1;
-  for (long long base = warp * 32; base < n; base += nwarps * 32) {
-    const long long p = base + lane;
-    int id = 0;
-    if (p < n) {
-      const int l = __ldg(labels + p);
-      id = (l > 0 && l < num_segments) ? l : 0;
+  for (long long s0 = warp * CM_SPAN; s0 < n; s0 += nwarps * CM_SPAN) {
+    const long long p = s0 + (long long)lane * CM_VPX;
+    int id[CM_VPX];
+    if (VEC) {
+      int4 a = make_int4(0, 0, 0, 0), b = a;
+      if (p < n) {
+        const int4* lp = reinterpret_cast<const int4*>(labels + p);
+        a = __ldg(lp);
+        b = __ldg(lp + 1);
+      }
+      id[0] = a.x; id[1] = a.y; id[2] = a.z; id[3] = a.w;
+      id[4] = b.x; id[5] = b.y; id[6] = b.z; id[7] = b.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < CM_VPX; ++i) {
+        id[i] = p + i < n ? __ldg(labels + p + i) : 0;
+      }
     }
-    if (__ballot_sync(kFull, id != 0) == 0) continue;  // all background
-    // runs of equal ids over consecutive lanes: start = the run's first
-    // lane (the highest head at or below this lane), tail = its last lane
-    const int prev = __shfl_up_sync(kFull, id, 1);
-    const int next = __shfl_down_sync(kFull, id, 1);
-    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != id);
+    bool any = false;
+    unsigned brk = 0;  // bit i: pixel i starts a new run
+#pragma unroll
+    for (int i = 0; i < CM_VPX; ++i) {
+      id[i] = (id[i] > 0 && id[i] < num_segments) ? id[i] : 0;
+      any |= id[i] != 0;
+      if (i > 0) brk |= (unsigned)(id[i] != id[i - 1]) << i;
+    }
+    if (__ballot_sync(kFull, any) == 0) continue;  // all background
+    // The lane's runs: the first [0, fl), the last [ls, 8) (the same run
+    // when the lane holds one), and interior ones between. A run that
+    // crosses lanes is the last run of one lane, whole single-run lanes,
+    // and the first run of a lane: the lanes' last-run sums go through a
+    // segmented scan whose segments start at a lane with several runs or
+    // whose first id differs from the previous lane's last.
+    const bool multi = brk != 0;
+    const int fl = multi ? __ffs(brk) - 1 : CM_VPX;
+    const int ls = multi ? 31 - __clz(brk) : 0;
+    const int id0 = id[0], id7 = id[CM_VPX - 1];
+    const int prev7 = __shfl_up_sync(kFull, id7, 1);
+    const int next0 = __shfl_down_sync(kFull, id0, 1);
+    const bool joins = lane > 0 && id0 == prev7;
+    const unsigned heads = __ballot_sync(kFull, multi || !joins);
     const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
-    const bool issue = id != 0 && (lane == 31 || next != id);
-    float* row = acc + id * ncols;
-    if (issue) atomicAdd(row, (float)(lane - start + 1));
-#pragma unroll 4
-    for (int c = 0; c < nchan; ++c) {
-      float v = id != 0 ? load_px<BF16>(image, c * n + p) : 0.f;
+    // the last run ends here (else the next lane carries it on)
+    const bool issue_last = id7 != 0 && (lane == 31 || next0 != id7);
+    // a lane with several runs closes the run its first pixels end
+    const bool issue_first = multi && id0 != 0;
+    float* row0 = acc + id0 * ncols;
+    float* row7 = acc + id7 * ncols;
+
+    // columns col .. col + 3 (column 0 the count, column j > 0 channel
+    // j - 1): loaded together (a lane of background skips its loads),
+    // each lane's run sums, the scans, one (vector) atomic per run
+    for (int col = 0; col < ncols; col += CM_G) {
+      float v[CM_G][CM_VPX];
+#pragma unroll
+      for (int u = 0; u < CM_G; ++u) {
+        const int c = col + u;
+        if (any && c > 0 && c < ncols) {
+          load8<BF16, VEC>(image, (long long)(c - 1) * n, p, n, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < CM_VPX; ++i) {
+            v[u][i] = (any && c == 0) ? 1.f : 0.f;  // counts: exact
+          }
+        }
+      }
+      float first[CM_G], last[CM_G];
+#pragma unroll
+      for (int u = 0; u < CM_G; ++u) {
+        const float* x = v[u];
+        last[u] = ((x[0] + x[1]) + (x[2] + x[3])) +
+                  ((x[4] + x[5]) + (x[6] + x[7]));
+        first[u] = last[u];
+      }
+      if (multi) {
+#pragma unroll
+        for (int u = 0; u < CM_G; ++u) {
+          first[u] = 0.f;
+          last[u] = 0.f;
+#pragma unroll
+          for (int i = 0; i < CM_VPX; ++i) {
+            first[u] += i < fl ? v[u][i] : 0.f;
+            last[u] += i >= ls ? v[u][i] : 0.f;
+          }
+        }
+        // interior runs [a, b) between the boundaries after the first
+        unsigned bb = brk & (brk - 1);
+        int a = fl;
+        while (bb) {
+          const int b = __ffs(bb) - 1;
+          bb &= bb - 1;
+          float sum[CM_G];
+          int rid = 0;
+#pragma unroll
+          for (int u = 0; u < CM_G; ++u) sum[u] = 0.f;
+#pragma unroll
+          for (int i = 0; i < CM_VPX; ++i) {
+            const bool in = i >= a && i < b;
+#pragma unroll
+            for (int u = 0; u < CM_G; ++u) sum[u] += in ? v[u][i] : 0.f;
+            rid = i == a ? id[i] : rid;
+          }
+          if (rid != 0) add4<VATOM>(acc + rid * ncols, col, ncols, sum);
+          a = b;
+        }
+      }
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
-        const float o = __shfl_up_sync(kFull, v, d);
-        if (lane - d >= start) v += o;
+#pragma unroll
+        for (int u = 0; u < CM_G; ++u) {
+          const float o = __shfl_up_sync(kFull, last[u], d);
+          if (lane - d >= start) last[u] += o;
+        }
       }
-      if (issue) atomicAdd(row + 1 + c, v);
+#pragma unroll
+      for (int u = 0; u < CM_G; ++u) {
+        const float before = __shfl_up_sync(kFull, last[u], 1);
+        first[u] += joins ? before : 0.f;
+      }
+      if (issue_last) add4<VATOM>(row7, col, ncols, last);
+      if (issue_first) add4<VATOM>(row0, col, ncols, first);
     }
   }
 }
@@ -371,15 +535,39 @@ HF_EXPORT int hf_label_stats(const int* labels, const void* image,
 HF_EXPORT int hf_stats_cm(const int* labels, const void* image,
                           int image_is_bf16, float* acc, long long n,
                           int nchan, int num_segments, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned grid = grid_for(n, threads);
-  if (image_is_bf16) {
-    stats_cm_kernel<true><<<grid, threads, 0, stream>>>(
-        labels, image, acc, n, nchan, num_segments);
-  } else {
-    stats_cm_kernel<false><<<grid, threads, 0, stream>>>(
-        labels, image, acc, n, nchan, num_segments);
+  // `acc`: the (num_segments, 1 + nchan) f32 table the kernel adds into
+  if (n < 0 || nchan < 0 || num_segments <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (n == 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  // 16-byte loads need 16-byte aligned labels and image and n % 8 == 0
+  // (every channel row then starts aligned), else the element-wise loads;
+  // 16-byte atomics need a 16-byte aligned table with 1 + nchan a
+  // multiple of 4, else one atomic per column
+  const bool vec = ((unsigned long long)labels & 15) == 0 &&
+                   ((unsigned long long)image & 15) == 0 && n % CM_VPX == 0;
+  const bool vatom =
+      ((unsigned long long)acc & 15) == 0 && (nchan + 1) % CM_G == 0;
+  long long blocks = ((n + CM_SPAN - 1) / CM_SPAN + 7) / 8;
+  const long long cap = 132LL * 16;
+  if (blocks > cap) blocks = cap;
+  const unsigned grid = (unsigned)(blocks > 0 ? blocks : 1);
+#define HF_CM(BF, V, A)                                                    \
+  stats_cm_kernel<BF, V, A><<<grid, threads, 0, stream>>>(                 \
+      labels, image, acc, n, nchan, num_segments)
+  if (image_is_bf16) {
+    if (vec && vatom) HF_CM(true, true, true);
+    else if (vec) HF_CM(true, true, false);
+    else if (vatom) HF_CM(true, false, true);
+    else HF_CM(true, false, false);
+  } else {
+    if (vec && vatom) HF_CM(false, true, true);
+    else if (vec) HF_CM(false, true, false);
+    else if (vatom) HF_CM(false, false, true);
+    else HF_CM(false, false, false);
+  }
+#undef HF_CM
   return (int)cudaGetLastError();
 }
 

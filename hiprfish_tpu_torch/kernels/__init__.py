@@ -57,35 +57,42 @@ def nlm(img: torch.Tensor, h: float, patch_size: int,
     return out
 
 
-# the device copies of the larger B2 line tables, by table and device
+# B2's line tables, host (int32) and device copies, by stencil and device
 _lpcv2d_tables: dict = {}
 
 
-def lpcv2d(img: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+def lpcv2d(img: torch.Tensor, patch_size: int = 11,
+           phi_range: int = 9) -> torch.Tensor:
     """B2: LP-CV enhancement of an (H, W) f32 image (csrc/lpcv2d.cu) along
-    ``table``, line_table_2d(patch_size, phi_range) as a (phi_range,
-    patch_size, 2) array: odd patch_size up to 129, phi_range up to 128.
-    Stencils up to (11, 9) travel in the launch parameters; a larger one
-    is copied to the device once and read from there."""
+    line_table_2d(patch_size, phi_range), for any odd patch_size and any
+    phi_range >= 1. The table is built here (the (11, 9) kernel relies on
+    every line holding the centre as its middle sample) and copied to the
+    device once; (11, 9) also takes its offsets in the launch parameters,
+    and every other stencil a global scratch for its ratios, allocated
+    here."""
+    from hiprfish_tpu_torch.ops.line_profile import _line_table_2d_cached
+
     _require(img, "lpcv2d img", (torch.float32,), 2)
-    tab = np.ascontiguousarray(table, dtype=np.int32)
-    if tab.ndim != 3 or tab.shape[2] != 2:
-        raise ValueError("lpcv2d: table must be (phi_range, patch_size, 2)")
-    phi, patch = tab.shape[:2]
-    if patch % 2 != 1 or patch > 129 or not 1 <= phi <= 128:
-        raise ValueError("lpcv2d: odd patch_size <= 129 and 1 <= phi_range "
-                         "<= 128 required")
-    dev_ptr = None
-    if phi > 9 or patch > 11:
-        key = (tab.tobytes(), tab.shape, img.device)
-        if key not in _lpcv2d_tables:
-            _lpcv2d_tables[key] = torch.from_numpy(tab).to(img.device)
-        dev_ptr = _lpcv2d_tables[key].data_ptr()
+    patch, phi = patch_size, phi_range
+    if patch < 1 or patch % 2 != 1 or phi < 1:
+        raise ValueError("lpcv2d: odd patch_size and phi_range >= 1 "
+                         "required")
+    key = (patch, phi, img.device)
+    if key not in _lpcv2d_tables:
+        tab = np.ascontiguousarray(_line_table_2d_cached(patch, phi),
+                                   dtype=np.int32)
+        _lpcv2d_tables[key] = (tab, torch.from_numpy(tab).to(img.device))
+    tab, tab_dev = _lpcv2d_tables[key]
     out = torch.empty_like(img)
     lib = _build.load()
-    err = lib.hf_lpcv2d_f32(img.data_ptr(), out.data_ptr(), img.shape[0],
-                            img.shape[1], patch, phi, tab.ctypes.data,
-                            dev_ptr, _stream(img))
+    hh, ww = img.shape
+    nbytes = lib.hf_lpcv2d_scratch_bytes(hh, ww, patch, phi)
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32,
+                          device=img.device) if nbytes > 0 else None
+    err = lib.hf_lpcv2d_f32(img.data_ptr(), out.data_ptr(), hh, ww, patch,
+                            phi, tab.ctypes.data, tab_dev.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            _stream(img))
     _build.check(lib, err, "lpcv2d")
     lpcv2d.launches += 1
     return out
@@ -157,25 +164,33 @@ def label_lookup(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def stats_cm(labels: torch.Tensor, image: torch.Tensor,
-             num_segments: int) -> torch.Tensor:
+def stats_cm(labels: torch.Tensor, image: torch.Tensor, num_segments: int,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """B5: (num_segments, 1 + C) f32 [count, channel sums] table of a
     channels-major image (csrc/segstats.cu). ``labels`` (n,) int32,
-    ``image`` (C, n) f32 or bf16."""
+    ``image`` (C, n) f32 or bf16. With ``out`` (a contiguous
+    (num_segments, 1 + C) f32 table on the same device) the kernel adds
+    into it and returns it; else into a zeroed table of its own."""
     _require(labels, "stats_cm labels", (torch.int32,), 1)
     _require(image, "stats_cm image", (torch.float32, torch.bfloat16), 2)
     if image.shape[1] != labels.shape[0]:
         raise ValueError("stats_cm: image columns != labels size")
-    acc = torch.zeros((num_segments, 1 + image.shape[0]),
-                      dtype=torch.float32, device=labels.device)
+    shape = (num_segments, 1 + image.shape[0])
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=labels.device)
+    else:
+        _require(out, "stats_cm out", (torch.float32,), 2)
+        if tuple(out.shape) != shape or out.device != labels.device:
+            raise ValueError(f"stats_cm: out must be {shape} on "
+                             f"{labels.device}")
     lib = _build.load()
     err = lib.hf_stats_cm(labels.data_ptr(), image.data_ptr(),
-                          int(image.dtype == torch.bfloat16), acc.data_ptr(),
+                          int(image.dtype == torch.bfloat16), out.data_ptr(),
                           labels.shape[0], image.shape[0], num_segments,
                           _stream(labels))
     _build.check(lib, err, "stats_cm")
     stats_cm.launches += 1
-    return acc
+    return out
 
 
 def lpcv3d(vol: torch.Tensor, bf16: bool, patch_size: int = 11,

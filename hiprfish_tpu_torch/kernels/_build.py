@@ -49,8 +49,8 @@ SIGNATURES = {
     # img, out, h, w, pd, patch, h2, stream
     "hf_nlm_f32": (_P, _P, _I, _I, _I, _I, _F, _P),
     # img, out, h, w, patch, phi, line table (host), line table (device),
-    # stream
-    "hf_lpcv2d_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # scratch, stream
+    "hf_lpcv2d_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # labels, image, image_is_bf16, aux, mask, acc, moments scratch, n, h,
     # w, nchan, num_segments, aux_classes, has_mask, ncols, stream
     "hf_label_stats": (_P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -140,6 +140,9 @@ def open_library(path: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    # h, w, patch, phi -> bytes of B2's global scratch
+    lib.hf_lpcv2d_scratch_bytes.argtypes = [_I, _I, _I, _I]
+    lib.hf_lpcv2d_scratch_bytes.restype = _L
     lib.hf_error_string.argtypes = [ctypes.c_int]
     lib.hf_error_string.restype = ctypes.c_char_p
     return lib

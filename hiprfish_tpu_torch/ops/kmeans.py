@@ -1,22 +1,52 @@
 """Histogram Lloyd KMeans for 1-D intensity clustering (torch port of
 hiprfish_tpu/ops/kmeans.py).
 
-On CUDA the histogram's ``index_add_`` sums in a run-dependent order, so a
-bin value can move by an ulp against the CPU; the cluster centres, and the
-brightest-cluster threshold built from them, then move by a few ulps, and
-only pixels within those ulps of the threshold can change side. On the CPU
-the sums are sequential and the masks equal the reference's.
+On the CPU the histogram's bin sums are sequential f32 sums, as the
+reference's, and the masks equal the reference's. On CUDA an f32
+``index_add_`` would add in the atomics' run-dependent order, so the bins
+are summed in fixed point instead (``fixed_point_bin_sums``): each value's
+offset from the minimum as an int64 multiple of span / 2^40, summed exactly
+in any order and rounded once to f32. Two calls on the card then give the
+same centres bitwise. Against the CPU the bins differ by a few ulps (one
+rounding instead of a sequential sum), so the centres and the
+brightest-cluster threshold move by a few ulps, and only pixels within
+those ulps of the threshold can change side.
 """
 
 from __future__ import annotations
 
 import torch
 
+# fixed-point resolution of the card's bin sums: a value's offset from the
+# minimum is rounded to a multiple of span / 2^40; at most 2^19 + 512 values
+# of at most ~2^40 each keep every int64 sum below 2^60
+FIX_BITS = 40
+
+
+def fixed_point_bin_sums(idx: torch.Tensor, vs: torch.Tensor,
+                         vmin: torch.Tensor, span: torch.Tensor,
+                         n_bins: int):
+    """(counts, sums) as f32 of the values ``vs`` in the bins ``idx``, the
+    same bits for any order of the values: each offset vs - vmin (exact in
+    f64) becomes round(offset * 2^40 / span) in int64, the bins add those
+    integers (exact in any order, atomics included), and each bin's sum
+    count * vmin + total * span / 2^40 is rounded once to f32. A sum is
+    within count * span * 2^-41 of the exact one before that rounding."""
+    scale = (2.0 ** FIX_BITS) / span.to(torch.float64)
+    q = torch.round((vs.to(torch.float64) - vmin.to(torch.float64))
+                    * scale).to(torch.int64)
+    cs = torch.zeros((n_bins, 2), dtype=torch.int64, device=vs.device)
+    cs.index_add_(0, idx, torch.stack([torch.ones_like(q), q], dim=-1))
+    counts = cs[:, 0].to(torch.float64)
+    sums = counts * vmin.to(torch.float64) + cs[:, 1].to(torch.float64) / scale
+    return counts.to(torch.float32), sums.to(torch.float32)
+
 
 def _value_histogram(values: torch.Tensor, n_bins: int):
     """(counts, bin_val, vmin, vmax, span) over a subsample of whole
     512-value blocks at a row stride once there are more than 2^19
-    values."""
+    values; the bin sums are sequential f32 on the CPU and fixed point
+    (order-free) on CUDA."""
     v = values.reshape(-1).to(torch.float32)
     vmin = torch.min(v)
     vmax = torch.max(v)
@@ -31,10 +61,13 @@ def _value_histogram(values: torch.Tensor, n_bins: int):
         vs = v
     idx = torch.clamp(((vs - vmin) / span * (n_bins - 1)).to(torch.int32),
                       0, n_bins - 1)
-    cs = torch.zeros((n_bins, 2), dtype=torch.float32, device=v.device)
-    cs.index_add_(0, idx, torch.stack([torch.ones_like(vs), vs], dim=-1))
-    counts = cs[:, 0]
-    sums = cs[:, 1]
+    if v.device.type == "cuda":
+        counts, sums = fixed_point_bin_sums(idx, vs, vmin, span, n_bins)
+    else:
+        cs = torch.zeros((n_bins, 2), dtype=torch.float32, device=v.device)
+        cs.index_add_(0, idx, torch.stack([torch.ones_like(vs), vs], dim=-1))
+        counts = cs[:, 0]
+        sums = cs[:, 1]
     bin_centers = torch.where(counts > 0,
                               sums / torch.clamp(counts, min=1.0),
                               torch.zeros_like(sums))

@@ -185,7 +185,7 @@ def lp_cv_enhance_2d(image: torch.Tensor, patch_size: int = 11,
     """Kernel B2 on a CUDA tensor, the plain version on a CPU tensor."""
     if image.device.type == "cuda":
         return kernels.lpcv2d(image.to(torch.float32).contiguous(),
-                              _line_table_2d_cached(patch_size, phi_range))
+                              patch_size, phi_range)
     if image.device.type == "cpu":
         return lp_cv_enhance_2d_plain(image, patch_size, phi_range)
     raise ValueError(f"lp_cv_enhance_2d: unsupported device {image.device}")

@@ -207,20 +207,24 @@ def stats_cm_plain(labels: torch.Tensor, image: torch.Tensor,
 
 
 def stats_cm(labels: torch.Tensor, img_cm: torch.Tensor,
-             num_segments: int) -> torch.Tensor:
+             num_segments: int, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """Per-label [count, channel sums] of a channels-major image, the
     streamed 3D measurement's reduction: kernel B5 on CUDA tensors, the
     plain version on CPU tensors. ``labels`` any shape; ``img_cm`` (C,) +
     labels.shape in f32 or bf16 (other dtypes go through f32). Returns the
-    (num_segments, 1 + C) f32 table, column 0 the count; unlike the
-    reference's banded window it cannot spill, so there is no spill
-    flag."""
+    (num_segments, 1 + C) f32 table, column 0 the count; with ``out``, a
+    (num_segments, 1 + C) f32 table, the sums are added into it and it is
+    returned (the kernel adds in place; the plain version adds its table).
+    Unlike the reference's banded window it cannot spill, so there is no
+    spill flag."""
     flat = labels.reshape(-1).to(torch.int32).contiguous()
     img = img_cm.reshape(img_cm.shape[0], flat.shape[0])
     if img.dtype not in (torch.float32, torch.bfloat16):
         img = img.to(torch.float32)
     if labels.device.type == "cuda":
-        return kernels.stats_cm(flat, img.contiguous(), num_segments)
+        return kernels.stats_cm(flat, img.contiguous(), num_segments, out)
     if labels.device.type == "cpu":
-        return stats_cm_plain(flat, img, num_segments)
+        acc = stats_cm_plain(flat, img, num_segments)
+        return acc if out is None else out.add_(acc)
     raise ValueError(f"stats_cm: unsupported device {labels.device}")

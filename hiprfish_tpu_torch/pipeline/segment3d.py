@@ -347,8 +347,9 @@ def make_fused_measure(loader_fn, shape, z_chunk: int, n_channels: int,
     ``loader_fn(z0, zc) -> (C, zc, X, Y)``: returns ``run(seg_zxy) ->
     ((max_cells, C) mean spectra, spill=False)`` taking the (Z, X, Y)
     label volume. The z-chunks are swept in a Python loop, one chunk of
-    spectra alive at a time, each reduced by stats_cm (kernel B5 on CUDA).
-    Label 0 is not accumulated, so row 0 is zero."""
+    spectra alive at a time, each reduced by stats_cm (kernel B5 on CUDA)
+    into one table that it adds to in place. Label 0 is not accumulated,
+    so row 0 is zero."""
     z = shape[2]
 
     def run(seg_zxy: torch.Tensor):
@@ -356,8 +357,8 @@ def make_fused_measure(loader_fn, shape, z_chunk: int, n_channels: int,
                           device=seg_zxy.device)
         for z0 in range(0, z, z_chunk):
             zc = min(z_chunk, z - z0)
-            acc += segstats.stats_cm(seg_zxy[z0:z0 + zc], loader_fn(z0, zc),
-                                     max_cells)
+            segstats.stats_cm(seg_zxy[z0:z0 + zc], loader_fn(z0, zc),
+                              max_cells, out=acc)
         return acc[:, 1:] / torch.clamp(acc[:, :1], min=1.0), False
 
     return run

@@ -1,5 +1,6 @@
 """chip_smoke.py's work counts and bounds of the six CUDA kernels at the
-main paths' shapes: the operations and bytes each kernel must at least do,
+main paths' shapes and at phase 13's configurations: the operations and
+bytes each kernel must at least do,
 and the least time the H100 could take for them (the larger of the
 operations over 67 TFLOP/s f32 and the bytes over 3.35 TB/s)."""
 
@@ -32,6 +33,50 @@ def test_lpcv3d_ops_follow_the_generated_header():
                              + n_orient + 2 * n_cx + 10) == 3090
 
 
+@pytest.mark.parametrize("patch,phi,n_cx,ops", [
+    # phi (patch - 1) 2 min/max + 4 phi (ratios) + phi (mean) + 2 n_cx + 6;
+    # n_cx the fewest compare-exchanges known: an optimal sorting network
+    # at phi 9 and 12, the pruned selection network elsewhere
+    (11, 9, 25, 281), (7, 5, 9, 109), (15, 12, 39, 480), (131, 5, 9, 1349),
+    (11, 129, 1534, 6299)])
+def test_lpcv2d_ops_by_stencil(patch, phi, n_cx, ops):
+    assert cs._network_ops(phi) == 2 * n_cx
+    assert cs.ops_lpcv2d(patch, phi) == (phi * (patch - 1) * 2 + 5 * phi
+                                         + 2 * n_cx + 6) == ops
+    assert cs.ops_lpcv2d() == cs.OPS_LPCV2D == 281
+
+
+@pytest.mark.parametrize("n,pruned,best_sort", [
+    # (n, the pruned selection network's compare-exchanges, the smallest
+    # known sorting network's): the bound counts the smaller
+    (5, 9, 9), (8, 18, 19), (9, 26, 25), (12, 41, 39), (16, 56, 60)])
+def test_network_ops_count_the_fewest_compare_exchanges(n, pruned,
+                                                        best_sort):
+    from hiprfish_tpu_torch.ops import line_profile as lp
+
+    (lo25, hi25, _), (lo75, hi75, _) = lp.quartile_ranks(n)
+    assert len(lp.selection_network(n, (lo25, hi25, lo75, hi75))) == pruned
+    assert cs.BEST_SORT[n] == best_sort
+    assert cs._network_ops(n) == 2 * min(pruned, best_sort)
+
+
+@pytest.mark.parametrize("cfg,n_cx,ops", [
+    # over (theta - 1) phi orientations, the combine 10
+    ((11, 9, 9), 640, 3090), ((7, 5, 6), 115, 648), ((21, 5, 4), 56, 842),
+    ((29, 3, 4), 18, 534)])
+def test_lpcv3d_ops_by_configuration(cfg, n_cx, ops):
+    patch, theta, phi = cfg
+    n = (theta - 1) * phi
+    assert cs._network_ops(n) == 2 * n_cx
+    assert cs.ops_lpcv3d(*cfg) == (n * (patch - 1) * 2 + 5 * n + 2 * n_cx
+                                   + 10) == ops
+
+
+def test_lpcv2d_tolerance_grows_with_phi():
+    assert cs.lpcv2d_tol(9) == 1e-6
+    assert cs.lpcv2d_tol(129) == 129 * 2.0 ** -24
+
+
 def test_nlm_ops_per_pixel_and_offset():
     # squared difference (sub, mul), running column and row sums (2 adds,
     # 2 subtractions), the weight (max, mul by the folded constant, exp2)
@@ -46,6 +91,18 @@ def test_nlm_ops_per_pixel_and_offset():
     # B2: 281 ops per pixel
     ("lpcv2d", dict(h=2000, w=2000), 2000 ** 2 * 281, 8 * 2000 ** 2,
      0.016776119402985075, "operations"),
+    # phase 13's configurations: B1 at pd 80 (6,480 offsets x 15 ops) and
+    # B2 at (131, 5) and (11, 129) on 96 x 160, B6 at (21, 5, 4) on
+    # 40 x 24 x 36
+    ("nlm", dict(h=96, w=160, pd=80), 96 * 160 * 12960 * 15, 8 * 96 * 160,
+     0.04456692537313433, "operations"),
+    ("lpcv2d", dict(h=96, w=160, patch=131, phi=5), 96 * 160 * 1349,
+     8 * 96 * 160, 0.00030926328358208956, "operations"),
+    ("lpcv2d", dict(h=96, w=160, patch=11, phi=129), 96 * 160 * 6299,
+     8 * 96 * 160, 0.0014440692537313433, "operations"),
+    ("lpcv3d", dict(voxels=40 * 24 * 36, patch=21, theta=5, phi=4),
+     40 * 24 * 36 * 842, 8 * 40 * 24 * 36, 0.0004343211940298507,
+     "operations"),
     # B6 on the 256 x 170 x 256 sub-volume and on the whole volume
     ("lpcv3d", dict(voxels=256 * 170 * 256), 256 * 170 * 256 * 3090,
      8 * 256 * 170 * 256, 0.5138218029850746, "operations"),

@@ -68,7 +68,7 @@ def _labels(shape, seed=0):
 
 @pytest.mark.parametrize("call", [
     lambda t: kernels.nlm(t, 0.02, 7, 11),
-    lambda t: kernels.lpcv2d(t, line_profile.line_table_2d()),
+    lambda t: kernels.lpcv2d(t, 11, 9),
     lambda t: kernels.label_stats(t.reshape(-1).to(torch.int32), None, None,
                                   None, 8, 0, False, *t.shape),
     lambda t: kernels.label_lookup(t.to(torch.int32), torch.ones(8)),
@@ -144,9 +144,9 @@ def test_nlm_kernel_matches_plain(cuda, shape, patch, pd):
 
 
 @pytest.mark.cuda
-# (11, 9) the main path's stencil, (7, 5) a smaller one (launch
-# parameters), (15, 12) a larger one with interpolated quartiles (device
-# memory)
+# (11, 9) the main path's stencil (its own kernel), (7, 5) a smaller one
+# and (15, 12) a larger one with interpolated quartiles (both the kernel
+# for any stencil)
 @pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5), (15, 12)])
 @pytest.mark.parametrize("shape", [(96, 160), (33, 41)])
 def test_lpcv2d_kernel_matches_plain(cuda, shape, patch, phi):
@@ -154,6 +154,37 @@ def test_lpcv2d_kernel_matches_plain(cuda, shape, patch, phi):
     before = kernels.lpcv2d.launches
     out = line_profile.lp_cv_enhance_2d(img, patch, phi)
     assert kernels.lpcv2d.launches == before + 1
+    ref = line_profile.lp_cv_enhance_2d_plain(img, patch, phi)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+# past the former caps: patch 131 (halo 65) and phi 129 and 240 (ratios
+# past any fixed per-thread array); interpolated quartiles throughout
+@pytest.mark.parametrize("patch,phi", [(131, 5), (11, 129), (11, 240)])
+@pytest.mark.parametrize("shape", [(40, 56), (33, 41)])
+def test_lpcv2d_kernel_large_stencils(cuda, shape, patch, phi):
+    img = torch.from_numpy(_smooth(shape, 2)).to(cuda)
+    before = kernels.lpcv2d.launches
+    out = line_profile.lp_cv_enhance_2d(img, patch, phi)
+    assert kernels.lpcv2d.launches == before + 1
+    ref = line_profile.lp_cv_enhance_2d_plain(img, patch, phi)
+    # the phi-term mean summed in another order: up to phi ulps of 1
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=max(1e-6, phi * 2.0 ** -24))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5)])
+@pytest.mark.parametrize("scale", [1e-20, 1e30])
+def test_lpcv2d_kernel_exact_slow_path(cuda, patch, phi, scale):
+    # differences below 2^-60 or ranges above 2^60: the (11, 9) kernel's
+    # written-out quotient is not certain to be exact there, and the
+    # block's pixels are redone with the compiler's division (which the
+    # kernel for any other stencil always takes); the result is scale-free
+    img = torch.from_numpy(_smooth((70, 53), 3) * np.float32(scale)) \
+        .to(cuda)
+    out = line_profile.lp_cv_enhance_2d(img, patch, phi)
     ref = line_profile.lp_cv_enhance_2d_plain(img, patch, phi)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
@@ -255,9 +286,8 @@ def test_brightest_cluster_mask_cuda_vs_cpu(cuda):
     img = torch.from_numpy(_bimodal((768, 768)))
     c_cpu = kmeans.kmeans1d_centers(img, 2, 40)
     c_gpu = kmeans.kmeans1d_centers(img.to(cuda), 2, 40).cpu()
-    # CUDA's index_add_ adds each bin's values in run order and its
-    # reductions in another order than the CPU: the centres agree to a few
-    # ulps, not bitwise
+    # the card sums the bins in fixed point and rounds once, the CPU in
+    # sequential f32: the centres agree to a few ulps, not bitwise
     torch.testing.assert_close(c_gpu, c_cpu, rtol=1e-6, atol=0)
     m_cpu = kmeans.brightest_cluster_mask(img, 2, 40)
     m_gpu = kmeans.brightest_cluster_mask(img.to(cuda), 2, 40).cpu()
@@ -266,6 +296,20 @@ def test_brightest_cluster_mask_cuda_vs_cpu(cuda):
         # only pixels within that rounding of the threshold change side
         thr = (c_cpu[-1] + c_cpu[-2]) / 2
         assert float((img[differ] - thr).abs().max()) <= 1e-6 * float(thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(768, 768), (256, 256)])
+def test_kmeans_centres_bitwise_equal_across_calls(cuda, shape):
+    # the fixed-point bin sums are order-free: two calls on the same image
+    # give the same centres, threshold and mask bit for bit
+    img = torch.from_numpy(_bimodal(shape, 4)).to(cuda)
+    first = kmeans.kmeans1d_centers_multi(img, (2, 3), 40)
+    again = kmeans.kmeans1d_centers_multi(img, (2, 3), 40)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert torch.equal(kmeans.brightest_cluster_mask(img),
+                       kmeans.brightest_cluster_mask(img))
 
 
 def _volume(shape, seed=0):
@@ -307,6 +351,25 @@ def test_lpcv3d_kernel_other_configuration(cuda, bf16, shape):
 
 
 @pytest.mark.cuda
+# rings that do not fit a 32-wide block: 16-wide blocks at (21, 5, 4) f32
+# and (29, 3, 4) bf16; past those, the global-memory kernel at (25, 3, 2)
+# f32 and (33, 3, 2) bf16
+@pytest.mark.parametrize("cfg,bf16", [((21, 5, 4), False),
+                                      ((29, 3, 4), True),
+                                      ((25, 3, 2), False),
+                                      ((33, 3, 2), True)])
+@pytest.mark.parametrize("shape", [(20, 12, 40), (9, 7, 33)])
+def test_lpcv3d_kernel_large_patch(cuda, cfg, bf16, shape):
+    vol = torch.from_numpy(_volume(shape, 6)).to(cuda)
+    before = kernels.lpcv3d.launches
+    out = line_profile.lp_cv_enhance_3d(vol, *cfg, bf16=bf16, layout="xzy")
+    assert kernels.lpcv3d.launches == before + 1
+    ref = line_profile.lp_cv_enhance_3d_plain(vol, *cfg, bf16=bf16,
+                                              layout="xzy")
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("scale", [1e-20, 1e30])
 def test_lpcv3d_kernel_exact_slow_path(cuda, bf16, scale):
@@ -342,6 +405,73 @@ def test_stats_cm_kernel_matches_plain(cuda, dtype):
     ref = segstats.stats_cm_plain(lab.reshape(-1), img.reshape(9, -1), 48)
     torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=0, atol=0)
     torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-5)
+
+
+def _b5_case(kind, nchan, dtype, cuda, nseg=48):
+    """(labels (n,), image (C, n)) of a B5 case: runs of random length and
+    id (a third background) over n pixels; ``kind`` picks the shape of the
+    case."""
+    rng = np.random.RandomState(len(kind) * 7 + nchan)
+    n = {"ragged": 6173, "offset": 6000}.get(kind, 8296)
+    lab = np.zeros(n, np.int32)
+    p = 0
+    while p < n:
+        k = rng.randint(1, 40)
+        lab[p:p + k] = 0 if rng.rand() < 0.33 else rng.randint(1, nseg)
+        p += k
+    if kind == "background":
+        lab[:] = 0
+    elif kind == "one_id":
+        lab[:] = 7
+    elif kind == "edge_ids":
+        # the last row, and ids past the table and below 1: nothing added
+        for i, v in enumerate((nseg - 1, nseg, nseg + 5, -1, 0)):
+            lab[i * 997:i * 997 + 300] = v
+    img = rng.rand(nchan, n).astype(np.float32)
+    if kind == "offset":
+        # contiguous views whose storage offsets leave the labels and every
+        # channel row off 16-byte alignment
+        lab_t = torch.from_numpy(np.concatenate(
+            [np.int32([3]), lab])).to(cuda)[1:]
+        flat = torch.from_numpy(np.concatenate(
+            [np.float32([0.5]), img.reshape(-1)]))
+        img_t = flat.to(cuda).to(dtype)[1:].view(nchan, n)
+        assert lab_t.storage_offset() == 1 and img_t.storage_offset() == 1
+        return lab_t, img_t
+    return (torch.from_numpy(lab).to(cuda),
+            torch.from_numpy(img).to(cuda).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nchan", [1, 63])
+# n % 8 != 0 (the element-wise loads); views off 16-byte alignment; all
+# background; one id over everything (runs across every lane and step);
+# ids at num_segments - 1 and past it
+@pytest.mark.parametrize("kind", ["cells", "ragged", "offset", "background",
+                                  "one_id", "edge_ids"])
+def test_stats_cm_kernel_cases(cuda, kind, nchan, dtype):
+    lab, img = _b5_case(kind, nchan, dtype, cuda)
+    assert lab.is_contiguous() and img.is_contiguous()
+    before = kernels.stats_cm.launches
+    out = kernels.stats_cm(lab, img, 48)
+    assert kernels.stats_cm.launches == before + 1
+    ref = segstats.stats_cm_plain(lab, img, 48)
+    assert torch.equal(out[:, 0], ref[:, 0])  # counts bitwise
+    torch.testing.assert_close(out, ref, rtol=2.0 ** -16, atol=1e-5)
+    if kind == "background":
+        assert not bool(out.any())
+
+
+@pytest.mark.cuda
+def test_stats_cm_kernel_adds_into_out(cuda):
+    lab, img = _b5_case("cells", 9, torch.bfloat16, cuda)
+    acc = torch.full((48, 10), 2.0, device=cuda)
+    got = segstats.stats_cm(lab, img, 48, out=acc)
+    assert got is acc
+    ref = segstats.stats_cm_plain(lab, img, 48) + 2.0
+    assert torch.equal(acc[:, 0], ref[:, 0])
+    torch.testing.assert_close(acc, ref, rtol=2.0 ** -16, atol=1e-5)
 
 
 @pytest.mark.cuda

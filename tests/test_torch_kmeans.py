@@ -1,7 +1,8 @@
 """Port parity: histogram-Lloyd KMeans masks vs the JAX package on the CPU.
 
 768 x 768 = 589,824 values exceed 2^19, so the strided block subsample of
-the histogram runs."""
+the histogram runs. The card's fixed-point bin sums are held here to their
+order-freedom and to f64 sums (the CPU path keeps sequential f32 sums)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +26,7 @@ def _bimodal(shape, seed):
     return img
 
 
-@pytest.mark.parametrize("shape", [(768, 768), (96, 128)])
+@pytest.mark.parametrize("shape", [(768, 768), (256, 256), (96, 128)])
 def test_brightest_cluster_mask_equal(shape):
     img = _bimodal(shape, 0)
     ref = np.asarray(jkm.brightest_cluster_mask(jnp.asarray(img), 2, 40))
@@ -43,3 +44,36 @@ def test_kmeans1d_centers_close(k):
     # summation order differs
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=0)
 
+
+def _bins(n, seed, n_bins=2048):
+    v = torch.from_numpy(_bimodal((n // 64, 64), seed).reshape(-1))
+    vmin, vmax = v.min(), v.max()
+    span = torch.clamp(vmax - vmin, min=1e-12)
+    idx = torch.clamp(((v - vmin) / span * (n_bins - 1)).to(torch.int32), 0,
+                      n_bins - 1)
+    return idx, v, vmin, span
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fixed_point_bin_sums_are_order_free(seed):
+    idx, v, vmin, span = _bins(1 << 16, seed)
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(v.numel()))
+    counts, sums = tkm.fixed_point_bin_sums(idx, v, vmin, span, 2048)
+    c2, s2 = tkm.fixed_point_bin_sums(idx[perm], v[perm], vmin, span, 2048)
+    assert torch.equal(counts, c2) and torch.equal(sums, s2)
+    assert int(counts.sum()) == v.numel()
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_fixed_point_bin_sums_close_to_f64(seed):
+    idx, v, vmin, span = _bins(1 << 16, seed)
+    counts, sums = tkm.fixed_point_bin_sums(idx, v, vmin, span, 2048)
+    ref = torch.zeros(2048, dtype=torch.float64).index_add_(
+        0, idx, v.to(torch.float64))
+    n = torch.zeros(2048, dtype=torch.float64).index_add_(
+        0, idx, torch.ones_like(v, dtype=torch.float64))
+    torch.testing.assert_close(counts.to(torch.float64), n, rtol=0, atol=0)
+    # each offset rounds to span * 2^-40 (count * span * 2^-41 per bin),
+    # then the bin's sum rounds once to f32 (2^-24 relative)
+    tol = 2.0 ** -24 * ref.abs() + n * float(span) * 2.0 ** -41
+    assert bool(((sums.to(torch.float64) - ref).abs() <= tol).all())

@@ -142,6 +142,21 @@ def test_lp_cv_enhance_3d_plain_matches_jax_other_configuration(bf16):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
 
 
+# configurations whose plane ring does not fit a 32-wide block: kernel B6
+# marches 16-wide blocks there (and past those, reads global memory)
+@pytest.mark.parametrize("patch,theta,phi,bf16", [(21, 5, 4, False),
+                                                  (29, 3, 4, True)])
+def test_lp_cv_enhance_3d_plain_matches_jax_large_patch(patch, theta, phi,
+                                                        bf16):
+    vol = np.ascontiguousarray(_volume((14, 16, 10), 6).transpose(0, 2, 1))
+    cfg = JConfig(patch_size=patch, theta_range=theta, phi_range=phi)
+    ref = np.asarray(jseg3d.lp_cv_enhance_3d_chunked(
+        jnp.asarray(vol), cfg, 16, bf16, "xzy"))
+    out = tlp.lp_cv_enhance_3d(torch.from_numpy(vol), patch, theta, phi, 16,
+                               bf16, "xzy")
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
 def test_bf16_mode_rounds_the_samples():
     vol = _volume(seed=1)
     t = torch.from_numpy(vol)

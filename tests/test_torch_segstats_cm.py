@@ -79,3 +79,35 @@ def test_stats_cm_takes_plain_on_cpu():
     torch.testing.assert_close(acc[:, 1], acc[:, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         tseg.stats_cm(lab.to("meta"), img.to("meta"), NSEG)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_cm_adds_into_a_caller_table(dtype):
+    # the streamed measurement's form: one table, each slab added in place,
+    # equal to the sum of the slabs' own tables
+    lab = torch.from_numpy(_planes(4, 12, 20, 3))
+    img = torch.from_numpy(np.random.RandomState(6).rand(5, 4, 12, 20)
+                           .astype(np.float32)).to(dtype)
+    acc = torch.zeros((NSEG, 6))
+    want = torch.zeros((NSEG, 6))
+    for z0 in (0, 2):
+        got = tseg.stats_cm(lab[z0:z0 + 2], img[:, z0:z0 + 2], NSEG, out=acc)
+        assert got is acc
+        want += tseg.stats_cm(lab[z0:z0 + 2], img[:, z0:z0 + 2], NSEG)
+    torch.testing.assert_close(acc, want, rtol=0, atol=0)
+
+
+def test_fused_measure_accumulates_in_place():
+    from hiprfish_tpu_torch.pipeline import segment3d
+
+    lab = torch.from_numpy(_planes(5, 12, 20, 4))          # (Z, X, Y)
+    img = torch.from_numpy(np.random.RandomState(7).rand(3, 5, 12, 20)
+                           .astype(np.float32))             # (C, Z, X, Y)
+    run = segment3d.make_fused_measure(
+        lambda z0, zc: img[:, z0:z0 + zc], (12, 20, 5), 2, 3, NSEG)
+    avg, spill = run(lab)
+    tot = tseg.stats_cm(lab, img, NSEG)
+    assert not spill
+    torch.testing.assert_close(
+        avg, tot[:, 1:] / torch.clamp(tot[:, :1], min=1.0), rtol=1e-6,
+        atol=1e-7)

@@ -1,13 +1,14 @@
-"""Time two builds of kernels B1, B3, B4 and B6 in turns on one GPU.
+"""Time two builds of kernels B1-B6 in turns on one GPU.
 
     git archive <commit> hiprfish_tpu_torch/csrc | tar -x -C build/ab_old
     python tools/ab_kernels.py --old build/ab_old/hiprfish_tpu_torch/csrc \\
-        [--out PATH]
+        [--only NAME ...] [--out PATH]
 
 Builds the package's ``csrc/`` and the older copy named by ``--old`` (each
 into its own hashed directory under build/torch_kernels/, the two builds
-in parallel) and prints ptxas's registers and spills of ``nlm.cu`` and
-``lpcv3d.cu`` for both. Then, at the main paths' shapes:
+in parallel) and prints ptxas's registers and spills of ``nlm.cu``,
+``lpcv2d.cu``, ``segstats.cu`` and ``lpcv3d.cu`` for both. Then, at the main
+paths' shapes:
 
   * B1 on chip_smoke.py's 2000^2 smooth image (h 0.02, patch 7, pd 11),
     and B2 (patch 11, phi 9) on its output, as phase 3 runs them;
@@ -18,6 +19,8 @@ in parallel) and prints ptxas's registers and spills of ``nlm.cu`` and
     mask) and counts on a 3D tile's 488 x 170 x 2020 labels (8192
     segments);
   * B4 on the 2000^2 labels (16384-entry table) and on the 3D tile;
+  * B5 on chip_smoke.py phase 6's bf16 (63, 2, 2020, 2020) channels-major
+    slab (z 78-79 of the 3D fixture, 16384 segments);
   * B6 in bf16 mode on the 256 x 170 x 256 (X, Z, Y) sub-volume and on the
     whole normalised 2020 x 170 x 2020 volume of chip_smoke.py phase 6;
 
@@ -25,14 +28,16 @@ it holds the two builds' outputs together and times each kernel in turns,
 old, new, new, old, each turn by chip_smoke._time_ms (the device time per
 call, behind a spin kernel that keeps the host's launch overhead off the
 device's timeline). B3's turns include zeroing its table, as its wrapper
-does. B1 must agree within 1e-5, B2 and B6 within 1e-6 absolute (the
-kernels' tolerances against their plain twins), B4 exactly; B3's count,
+does, and so do B5's. B1 must agree within 1e-5, B2 and B6 within 1e-6
+absolute (the kernels' tolerances against their plain twins), B4 exactly,
+B5's counts exactly and its sums within 2^-16 relative; B3's count,
 border, aux and mask columns exactly, its channel sums within 2^-16
 relative, and its moments within 2 (n - 1) 2^-24 relative when either
 build adds them as f32 in atomic order (bitwise when both sum them in
 int64). An older ``hf_label_stats`` without the moments' int64 scratch
 argument, or an ``hf_lpcv2d_f32`` with its stencil compiled in, is called
-with its own signature. It prints one JSON object with the card's name and
+with its own signature, and so is an ``hf_lpcv2d_f32`` from before its
+global scratch argument. It prints one JSON object with the card's name and
 power limit and every turn's time, and writes it to
 ``--out`` (default build/ab_kernels.json). Needs a CUDA device; imports
 neither jax nor the JAX package.
@@ -65,6 +70,14 @@ LABEL_STATS_F32_MOMENTS = (_P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I,
 # hf_lpcv2d_f32 of a build whose stencil is compiled in (11, 9): img, out,
 # h, w, patch, phi, stream
 LPCV2D_FIXED = (_P, _P, _I, _I, _I, _I, _P)
+# ... and of a build that takes the table but no scratch: img, out, h, w,
+# patch, phi, table (host), table (device, may be null), stream
+LPCV2D_NO_SCRATCH = (_P, _P, _I, _I, _I, _I, _P, _P, _P)
+
+
+def _scratch_lpcv2d(csrc: Path) -> bool:
+    """Does this copy of csrc/ take B2's global scratch argument?"""
+    return "hf_lpcv2d_scratch_bytes" in (csrc / "lpcv2d.cu").read_text()
 
 
 def _table_lpcv2d(csrc: Path) -> bool:
@@ -85,6 +98,8 @@ def _open(_build, path: Path, csrc: Path):
         sigs["hf_label_stats"] = LABEL_STATS_F32_MOMENTS
     if not _table_lpcv2d(csrc):
         sigs["hf_lpcv2d_f32"] = LPCV2D_FIXED
+    elif not _scratch_lpcv2d(csrc):
+        sigs["hf_lpcv2d_f32"] = LPCV2D_NO_SCRATCH
     lib = ctypes.CDLL(str(path))
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -94,6 +109,7 @@ def _open(_build, path: Path, csrc: Path):
     lib.hf_error_string.restype = ctypes.c_char_p
     lib.int64_moments = _int64_moments(csrc)
     lib.table_lpcv2d = _table_lpcv2d(csrc)
+    lib.scratch_lpcv2d = _scratch_lpcv2d(csrc)
     return lib
 
 
@@ -150,6 +166,9 @@ def main() -> int:
                          "lpcv3d.cu and the rest of that csrc/")
     ap.add_argument("--out", type=Path, default=ROOT / "build" /
                     "ab_kernels.json")
+    ap.add_argument("--only", nargs="+", default=None,
+                    help="time only the cases whose names start with one "
+                         "of these (e.g. lpcv2d stats_cm)")
     args = ap.parse_args()
 
     import torch
@@ -175,7 +194,7 @@ def main() -> int:
             "old": _open(_build, old_path, old_dir)}
     ptxas = {}
     for key, csrc in (("new", _build.CSRC), ("old", old_dir)):
-        for stem in ("nlm", "segstats", "lpcv3d"):
+        for stem in ("nlm", "lpcv2d", "segstats", "lpcv3d"):
             ptxas[f"{key} {stem}"] = _build.ptxas_report(stem, csrc)
             for line in ptxas[f"{key} {stem}"]:
                 print(f"ptxas {key} {stem}.cu: {line}")
@@ -193,8 +212,14 @@ def main() -> int:
     table2d = np.ascontiguousarray(line_profile.line_table_2d(11, 9),
                                    dtype=np.int32)
 
+    table2d_dev = torch.from_numpy(table2d).to(dev)
+
     def lpcv2d(lib, img, out):
-        extra = (table2d.ctypes.data, None) if lib.table_lpcv2d else ()
+        extra = ()
+        if lib.scratch_lpcv2d:
+            extra = (table2d.ctypes.data, table2d_dev.data_ptr(), None)
+        elif lib.table_lpcv2d:
+            extra = (table2d.ctypes.data, None)
         _build.check(lib, lib.hf_lpcv2d_f32(img.data_ptr(), out.data_ptr(),
                                             *img.shape, 11, 9, *extra,
                                             stream), "lpcv2d")
@@ -232,6 +257,24 @@ def main() -> int:
         _build.check(lib, err, "label_stats")
         return acc
 
+    def stats_cm(lib, a):
+        """B5 through ``lib`` as its wrapper calls it: a zeroed table, one
+        launch."""
+        labels, image, nseg = a
+        acc = torch.zeros((nseg, 1 + image.shape[0]), dtype=torch.float32,
+                          device=dev)
+        _build.check(lib, lib.hf_stats_cm(
+            labels.data_ptr(), image.data_ptr(),
+            int(image.dtype == torch.bfloat16), acc.data_ptr(),
+            labels.numel(), image.shape[0], nseg, stream), "stats_cm")
+        return acc
+
+    def b5_agree(a, b):
+        rel = (a[:, 1:] - b[:, 1:]).abs() / b[:, 1:].abs().clamp(min=1)
+        return (float((a - b).abs().max()),
+                bool(torch.equal(a[:, 0], b[:, 0]))
+                and float(rel.max()) <= 2.0 ** -16)
+
     def label_lookup(lib, a):
         labels, table = a
         out = torch.empty(labels.shape, dtype=torch.float32, device=dev)
@@ -244,6 +287,8 @@ def main() -> int:
 
     def ab(name, fn, x, agree, reps, make_out=False):
         """Both builds' outputs held together, then the four turns."""
+        if args.only and not any(name.startswith(o) for o in args.only):
+            return None
         outs = {}
         for k, lib in libs.items():
             outs[k] = fn(lib, x, torch.empty_like(x)) if make_out \
@@ -285,6 +330,8 @@ def main() -> int:
     size = synthetic.FLAGSHIP_SHAPE[0]
     img = torch.from_numpy(chip_smoke._smooth_image((size, size), 0)).to(dev)
     den = ab("nlm 2000^2", nlm, img, within(1e-5), 10, make_out=True)
+    if den is None:  # B1 not timed: B2 still takes its output
+        den = nlm(libs["new"], img, torch.empty_like(img))
     ab("lpcv2d 2000^2", lpcv2d, den, within(1e-6), 10, make_out=True)
     del img, den
     fov = synthetic.flagship_fov()
@@ -336,6 +383,14 @@ def main() -> int:
     del tile, tflat
     lut = np.stack([synthetic.barcode_spectrum(SEVEN_BIT, c)
                     for c in range(1, 128)]).astype(np.float32)
+    lut_dev = torch.from_numpy(lut).to(dev)
+    lab_cm = s3.truth_chunk(spec, 127, 78, 2, dev)[0] \
+        .permute(2, 0, 1).contiguous().reshape(-1)
+    img_cm = s3.channel_chunk_cm(spec, 127, 78, 2, lut_dev, 1,
+                                 torch.bfloat16).reshape(63, -1)
+    ab("stats_cm bf16 63x2x2020x2020", stats_cm,
+       (lab_cm, img_cm, chip_smoke.MAX_CELLS_3D), b5_agree, 10)
+    del lab_cm, img_cm
     vol = s3.build_sum_volume(spec, 127, lut.sum(axis=1), seed=1,
                               z_chunk=16, device=dev)
     vol_xzy = (vol / vol.max()).permute(0, 2, 1).contiguous()

@@ -158,6 +158,11 @@ def _volume_setup(torch, dev):
     return step, stages, 3
 
 
+# the device functions of csrc/ (B1-B6 and B3's moments pass)
+PORT_KERNELS = ("nlm_", "lpcv2d_", "label_stats_kernel", "moments_to_table",
+                "label_lookup_kernel", "stats_cm_kernel", "lpcv3d_")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = ap.add_mutually_exclusive_group()
@@ -275,6 +280,10 @@ def main() -> int:
         "device_idle_share_vs_unprofiled_wall": 1.0 - device_ms / wall_ms,
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                         for n, ms, c in rows[:25]],
+        # the port's own kernels (csrc/), whatever their rank
+        "port_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                         for n, ms, c in rows
+                         if any(k in n for k in PORT_KERNELS)],
     }
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
@@ -289,6 +298,9 @@ def main() -> int:
           f"{result['device_idle_share']:.3f} (vs the unprofiled wall "
           f"{result['device_idle_share_vs_unprofiled_wall']:.3f})")
     for r in result["top_kernels"][:15]:
+        print(f"  {r['ms']:9.2f} ms x{r['count']:6d}  {r['name']}")
+    print("the port's kernels:")
+    for r in result["port_kernels"]:
         print(f"  {r['ms']:9.2f} ms x{r['count']:6d}  {r['name']}")
     print(f"wrote {out}")
     return 0
