@@ -75,7 +75,19 @@ non-zero and prints no result:
      just past its former caps, (131, 5) and (11, 129) (a 96 x 160
      image), B6 at (7, 5, 6) in bf16 and f32, and at (21, 5, 4) in f32
      and (29, 3, 4) in bf16, whose plane rings need the 16-wide blocks (a
-     40 x 24 x 36 volume).
+     40 x 24 x 36 volume);
+ 14. run the four command lines at their default flags (max_cells 4096,
+     device cuda) in a temporary directory, twice each (cold, warm): the
+     2000^2 10-bit FOV's five .npy planes through cli.measure -c F (the
+     fused engine: B3 and B4 must launch) and cli.classify with the
+     1023-class classifier, and the 2000^2 7-bit FOV's four planes through
+     cli.measure_multispecies (the LP-CV engine: B1 and B2 must launch)
+     and cli.classify_spectra with the 127-code classifier. The calls are
+     read back from the written artifacts (_seg.npy with _cell_ids.txt, or
+     the barcode and label columns of _cell_information.csv) and must
+     reach 399 and 389 matched cells at accuracy 1.0, the JAX engines'
+     counts on these FOVs, with the same artifacts in both calls; print
+     each call's wall seconds.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on each path, errors, times, bound and library call); the last
@@ -89,6 +101,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -149,6 +162,16 @@ SOURCES = {
 PATH_2D = ("nlm", "lpcv2d", "label_stats", "label_lookup")
 PATH_3D = ("label_stats", "label_lookup", "stats_cm", "lpcv3d")
 PATH_ECOLI = ("label_stats", "label_lookup")
+# the kernels the measure command lines launch: the fused 10-bit engine
+# and the LP-CV engine
+PATH_CLI_MEASURE = ("label_stats", "label_lookup")
+PATH_CLI_MULTISPECIES = ("nlm", "lpcv2d")
+# the laser names of the per-laser planes the command lines read
+LASERS_10B = ("405", "488", "514", "561", "633")
+LASERS_7B = ("488", "514", "561", "633")
+# the JAX engines' matched cells on the 2000^2 FOVs at max_cells 4096
+CLI_MATCHED_10B = 399
+CLI_MATCHED_7B = 389
 # the order of the kernels line: B3 once per column set, B4 once per shape
 REPORT_ORDER = ("nlm", "lpcv2d", "label_stats[counts]", "label_stats[aux41]",
                 "label_stats[cube7b]", "label_stats[cols10b]",
@@ -577,6 +600,120 @@ def _tile_labels(torch, spec, n_codes: int, dev):
         tile[:, z0:z0 + zc] = s3.truth_chunk(spec, n_codes, z0, zc,
                                              dev)[0][:tx].permute(0, 2, 1)
     return torch.unique(tile, return_inverse=True)[1].to(torch.int32)
+
+
+def _artifact_calls(sample: str, table: bool):
+    """(segmentation, codebook, code index per label) read back from a
+    classified FOV's artifacts: _seg.npy with _cell_ids.txt (label i + 1
+    on line i), or the barcode (column 67: 63 features, 4 check bits) and
+    label (column 69) columns of _cell_information.csv."""
+    seg = np.load(f"{sample}_seg.npy")
+    if table:
+        with open(f"{sample}_cell_information.csv") as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        by_label = {int(r[69]): r[67] for r in rows}
+        codes = [by_label[i] for i in range(1, len(rows) + 1)]
+    else:
+        with open(f"{sample}_cell_ids.txt") as f:
+            codes = f.read().split()
+    return seg, ["-"] + codes, np.arange(len(codes) + 1)
+
+
+def _cli_pass(torch, kernels, measure_main, classify_main, measure_argv,
+              classify_argv, sample, table, path, phase_name):
+    """One command-line pair twice (cold, warm) in the current directory.
+    The measure call's launches are counted from zero in the cold call.
+    Returns (seconds per call, launches, artifacts of the warm call) and
+    fails unless both calls wrote the same segmentation and calls."""
+    seconds, launches, prev = {}, None, None
+    for turn in ("cold", "warm"):
+        if turn == "cold":
+            kernels.reset_launches()
+        t0 = time.time()
+        measure_main(measure_argv)
+        torch.cuda.synchronize()
+        seconds[f"measure {turn}"] = time.time() - t0
+        if turn == "cold":
+            launches = kernels.launch_counts()
+        t0 = time.time()
+        classify_main(classify_argv)
+        torch.cuda.synchronize()
+        seconds[f"classify {turn}"] = time.time() - t0
+        seg, codebook, idx = _artifact_calls(sample, table)
+        if prev is not None and (not np.array_equal(seg, prev[0])
+                                 or codebook != prev[1]):
+            raise AssertionError(f"{phase_name}: the warm call wrote other "
+                                 f"artifacts than the cold call")
+        prev = (seg, codebook, idx)
+    missing = [k for k in path if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by {phase_name}: "
+                             f"{missing}")
+    return seconds, launches, prev
+
+
+def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
+    """Phase 14: the four command lines on the 2000^2 FOVs, in a temporary
+    directory that is removed afterwards."""
+    from hiprfish_tpu_torch.cli import classify as cli_classify
+    from hiprfish_tpu_torch.cli import classify_spectra as cli_spectra
+    from hiprfish_tpu_torch.cli import measure as cli_measure
+    from hiprfish_tpu_torch.cli import measure_multispecies as cli_ms
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT
+    from hiprfish_tpu_torch.utils import synthetic
+
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            runs = (
+                ("measure", synthetic.ecoli_fov, TEN_BIT, LASERS_10B,
+                 synthetic.ECOLI_CODES, "ecoli_enc_5", False,
+                 cli_measure.main, ["-c", "F"], cli_classify.main,
+                 lambda s: [f"{s}_avgint.csv", "-rf", fixture_10b],
+                 PATH_CLI_MEASURE, CLI_MATCHED_10B),
+                ("measure_multispecies", synthetic.flagship_fov, SEVEN_BIT,
+                 LASERS_7B, synthetic.FLAGSHIP_CODES, "flagship", True,
+                 cli_ms.main, [], cli_spectra.main,
+                 lambda s: ["-i", f"{s}_avgint_norm.csv", "-r", fixture_7b],
+                 PATH_CLI_MULTISPECIES, CLI_MATCHED_7B),
+            )
+            for (name, make, layout, lasers, cell_codes, sample, table,
+                 m_main, m_flags, c_main, c_argv, path, want) in runs:
+                fov = make()
+                names = [f"{sample}_{laser}.npy" for laser in lasers]
+                for fname, plane in zip(names, fov["stack"]):
+                    np.save(fname, plane)
+                truth = fov["truth_labels"]
+                del fov
+                seconds, launches, (seg, codebook, idx) = _cli_pass(
+                    torch, kernels, m_main, c_main, ["-i", *names, *m_flags],
+                    c_argv(sample), sample, table, path, f"cli.{name}")
+                n_found = len(codebook) - 1
+                if seg.shape != truth.shape or int(seg.max()) != n_found:
+                    raise AssertionError(f"cli.{name}: artifacts malformed")
+                correct, matched = _barcode_accuracy(
+                    seg, truth, idx, cell_codes, codebook, layout, n_found,
+                    n_found + 1)
+                acc = correct / max(matched, 1)
+                print(f"phase 14 cli.{name} {seg.shape[0]}^2: n_cells "
+                      f"{n_found}, matched {matched}, accuracy {acc:.4f} "
+                      f"({correct}/{matched}) from the artifacts; seconds "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+                      + f"; launches {launches}")
+                if matched != want or correct != matched:
+                    raise AssertionError(
+                        f"cli.{name}: {correct}/{matched} matched cells "
+                        f"correct, expected {want}/{want}")
+                out[name] = {"n_cells": n_found, "matched": matched,
+                             "accuracy": acc, "seconds": seconds,
+                             "launches": launches}
+                for fname in os.listdir("."):
+                    os.remove(fname)
+        finally:
+            os.chdir(cwd)
+    return out
 
 
 def _smooth_image(shape, seed: int):
@@ -1137,9 +1274,19 @@ def main() -> int:
         raise AssertionError("a kernel disagrees with its plain twin beyond "
                              "the main paths' configurations")
 
+    # 14. the four command lines at full size
+    del estack, hres
+    torch.cuda.empty_cache()
+    clis = _cli_phase(torch, kernels, FIXTURE_10B, FIXTURE)
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
-               "fov_step_ecoli": (launches10, PATH_ECOLI)}
+               "fov_step_ecoli": (launches10, PATH_ECOLI),
+               "cli.measure": (clis["measure"]["launches"],
+                               PATH_CLI_MEASURE),
+               "cli.measure_multispecies": (
+                   clis["measure_multispecies"]["launches"],
+                   PATH_CLI_MULTISPECIES)}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -1150,7 +1297,8 @@ def main() -> int:
             "launches_by_path": {name: c[k] * (k in p)
                                  for name, (c, p) in by_path.items()},
             **report[key]})
-    print(json.dumps({"kernels": entries, "domains": domains}))
+    print(json.dumps({"kernels": entries, "domains": domains,
+                      "clis": clis}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -262,6 +262,22 @@ def remove_small_objects(mask: torch.Tensor, min_size: int,
     return mask & (counts[flat] >= min_size).reshape(mask.shape)
 
 
+def filter_and_relabel(labels: torch.Tensor, min_size: int,
+                       drop_border: bool = True):
+    """remove_small_labels + clear_border + relabel_sequential in one
+    counts pass, one border pass, a cumsum and one gather. Returns
+    (new_labels int32, n_labels int32)."""
+    flat, counts = _id_counts(labels)
+    keep = counts >= min_size
+    if drop_border:
+        border = border_mask(labels.shape, labels.device).reshape(-1)
+        keep[flat[border]] = False
+    keep[0] = False
+    newid = torch.cumsum(keep.to(torch.int32), dim=0, dtype=torch.int32)
+    value_tbl = torch.where(keep, newid, torch.zeros_like(newid))
+    return value_tbl[flat].reshape(labels.shape), newid[-1]
+
+
 def remove_small_labels(labels: torch.Tensor, min_size: int) -> torch.Tensor:
     """Zero label regions smaller than ``min_size``, keeping the remaining
     ids (skimage remove_small_objects on a label image)."""

@@ -23,17 +23,34 @@ def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
     return out.index_add_(0, ids[keep], values[keep])
 
 
-def mean_intensities(labels: torch.Tensor, image: torch.Tensor,
-                     num_segments: int) -> torch.Tensor:
-    """(num_segments, C) per-label mean of every channel of a
-    labels.shape + (C,) image in one pass; row 0 is the background and
-    rows of absent labels are 0."""
+def channel_sums(labels: torch.Tensor, image: torch.Tensor,
+                 num_segments: int):
+    """((num_segments, C) per-label channel sums, (num_segments, 1) pixel
+    counts) of a labels.shape + (C,) image, in float32."""
     ids = labels.reshape(-1).to(torch.int64)
     img = image.reshape(-1, image.shape[-1]).to(torch.float32)
     sums = _segment_sum(img, ids, num_segments)
     counts = _segment_sum(torch.ones((ids.shape[0], 1), dtype=torch.float32,
                                      device=ids.device), ids, num_segments)
+    return sums, counts
+
+
+def mean_intensities(labels: torch.Tensor, image: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """(num_segments, C) per-label mean of every channel of a
+    labels.shape + (C,) image in one pass; row 0 is the background and
+    rows of absent labels are 0."""
+    sums, counts = channel_sums(labels, image, num_segments)
     return sums / torch.clamp(counts, min=1.0)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add: the
+    product of two float32 values is exact in float64, so only the float64
+    sum rounds before the float32 cast (a double rounding that differs
+    from a true FMA only on exact float32 midpoints)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
 
 
 def shape_props_2d(labels: torch.Tensor, num_segments: int) -> dict:
@@ -60,12 +77,15 @@ def shape_props_2d(labels: torch.Tensor, num_segments: int) -> dict:
     rbar = sums[:, 1] / n
     cbar = sums[:, 2] / n
     # central second moments over the area, with skimage's +1/12 pixel
-    # extent in the inertia tensor
-    mu20 = sums[:, 3] / n - rbar * rbar + 1.0 / 12.0
-    mu02 = sums[:, 4] / n - cbar * cbar + 1.0 / 12.0
-    mu11 = sums[:, 5] / n - rbar * cbar
-    common = torch.sqrt(torch.clamp((mu20 - mu02) ** 2 + 4 * mu11 * mu11,
-                                    min=0.0))
+    # extent in the inertia tensor; E[r^2] - rbar^2 and the discriminant
+    # round once per multiply-add, as the reference's compiled program
+    # (which contracts them into FMAs) does: the cancellation in mu20
+    # turns a rounding step into ~1e-5 of the axis lengths
+    mu20 = _fma(-rbar, rbar, sums[:, 3] / n) + 1.0 / 12.0
+    mu02 = _fma(-cbar, cbar, sums[:, 4] / n) + 1.0 / 12.0
+    mu11 = _fma(-rbar, cbar, sums[:, 5] / n)
+    d = mu20 - mu02
+    common = torch.sqrt(torch.clamp(_fma(d, d, 4 * mu11 * mu11), min=0.0))
     lam1 = torch.clamp((mu20 + mu02 + common) / 2.0, min=1e-12)
     lam2 = torch.clamp((mu20 + mu02 - common) / 2.0, min=0.0)
     return {

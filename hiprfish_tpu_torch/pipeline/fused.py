@@ -110,9 +110,13 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
 
 def classify_device(avgint_norm, check_heads, check_blocks, scaler_mean,
                     scaler_scale, train_features, train_labels, n_classes,
-                    blocks, check_slice, n_channels, k, temperature):
+                    blocks, check_slice, n_channels, k, temperature,
+                    full: bool = False):
     """Feature build + check heads + gated-metric kNN vote for a
-    (rows, C) block of normalized spectra. Returns (code_idx, max_prob)."""
+    (rows, C) block of normalized spectra (with any derivative columns
+    appended). Returns (code_idx, max_prob), and with ``full`` also the
+    (rows, n_classes) vote scores and the feature rows [spectra, check
+    bits]."""
     x = avgint_norm[:, :n_channels]
     scaled = x if scaler_mean is None else (x - scaler_mean) / scaler_scale
     wmax = check_heads[0].d_in
@@ -136,8 +140,11 @@ def classify_device(avgint_norm, check_heads, check_blocks, scaler_mean,
                          device=feats.device)
     scores.scatter_add_(1, nb, w)
     # argmax takes the first index on ties, as jnp.argmax
-    return torch.argmax(scores, dim=1).to(torch.int32), \
-        torch.max(scores, dim=1).values
+    code_idx = torch.argmax(scores, dim=1).to(torch.int32)
+    max_prob = torch.max(scores, dim=1).values
+    if full:
+        return code_idx, max_prob, scores, feats
+    return code_idx, max_prob
 
 
 def classify_capped(spectra_rows, n_cells, cap, *clf_args):

@@ -1,13 +1,21 @@
-"""The 2D E. coli host engine (torch port of the E. coli half of
-hiprfish_tpu/pipeline/segment2d.py).
+"""The 2D host engines (torch port of hiprfish_tpu/pipeline/segment2d.py).
 
-``segment_ecoli`` is the engine with the reference's exact per-round
-erosion semantics: register on per-laser max projections -> log-sum ->
-KMeans foreground and interior -> fill small holes + opening +
+``segment_ecoli`` is the E. coli engine with the reference's exact
+per-round erosion semantics: register on per-laser max projections ->
+log-sum -> KMeans foreground and interior -> fill small holes + opening +
 remove_small(50) -> iterative erosion seeding -> watershed -> size and
 border filters -> minor-axis gate with per-cell double erosion ->
-sequential labels. It runs eagerly on the device of its inputs; the
-erosion loop reads one boolean back to the host per round.
+sequential labels. The erosion loop reads one boolean back to the host
+per round.
+
+``segment_lpcv`` is the synthetic-community LP-CV engine: register on
+full-frame sum projections (unclamped) -> channel sum -> max-normalise ->
+NL-means (kernel B1 on the card) -> LP-CV (kernel B2) -> two KMeans masks
+-> opening, small-object removal, fill holes -> CCL and relabel ->
+watershed on the enhanced image -> size and border filter. Its biofilm
+variant is not ported yet (ROADMAP §A.4).
+
+Both run eagerly on the device of their inputs.
 """
 
 from __future__ import annotations
@@ -17,8 +25,10 @@ from typing import NamedTuple
 import torch
 
 from hiprfish_tpu_torch.config import SegmentationConfig
+from hiprfish_tpu_torch.ops import denoise as dn
 from hiprfish_tpu_torch.ops import kmeans as km
 from hiprfish_tpu_torch.ops import labeling as lab
+from hiprfish_tpu_torch.ops import line_profile as lp
 from hiprfish_tpu_torch.ops import morphology as morph
 from hiprfish_tpu_torch.ops import regionprops as rp
 from hiprfish_tpu_torch.ops import register as reg
@@ -150,3 +160,78 @@ def segment_ecoli(image_stack, cfg: SegmentationConfig = SegmentationConfig(),
         adjacency=zero_i,
         epithelial=zero_i.to(torch.bool),
     )
+
+
+def segment_lpcv(image_stack, calibration=None,
+                 cfg: SegmentationConfig = SegmentationConfig(),
+                 max_cells: int = 4096,
+                 variant: str = "multispecies") -> Segmentation2D:
+    """LP-CV enhanced watershed segmentation of a multi-laser FOV.
+
+    image_stack: sequence of per-laser (H, W, C_l) float32 tensors on one
+    device; calibration: None or a tensor the registered cube is divided
+    by. The shifts come from FFT correlation of the full-frame per-laser
+    channel sums and are not clamped; the cube stays float32."""
+    _require_multispecies(variant)
+    image_stack = tuple(torch.as_tensor(a) for a in image_stack)
+    projections = [torch.sum(img, dim=2) for img in image_stack]
+    registered, _ = _register_stack(image_stack, projections, cfg.max_shift,
+                                    clamp=False)
+    if calibration is not None:
+        registered = registered / torch.as_tensor(calibration,
+                                                  device=registered.device)
+    return segment_lpcv_from_registered(registered, cfg, max_cells, variant)
+
+
+def segment_lpcv_from_registered(
+        registered, cfg: SegmentationConfig = SegmentationConfig(),
+        max_cells: int = 4096,
+        variant: str = "multispecies") -> Segmentation2D:
+    """LP-CV segmentation of an already-registered (H, W, C) image.
+    ``max_cells`` does not bound the multispecies labels (the reference's
+    neither); it bounds the measurement that follows."""
+    _require_multispecies(variant)
+    registered = torch.as_tensor(registered)
+    fov_sum = torch.sum(registered, dim=2)
+    sum_norm = fov_sum / torch.clamp(torch.max(fov_sum), min=1e-12)
+    denoised = dn.denoise_nl_means_auto(sum_norm, cfg.nlm_h,
+                                        cfg.nlm_patch_size,
+                                        cfg.nlm_patch_distance)
+    enhanced = lp.lp_cv_enhance_2d(denoised, cfg.patch_size, cfg.phi_range)
+
+    bkg = km.brightest_cluster_mask(denoised, 2, cfg.kmeans_iters)
+    # every seed and flood mask is cut to the intensity foreground anyway,
+    # so intersect first: the same seeds, compact blobs for the floods
+    fg = km.brightest_cluster_mask(enhanced, 2, cfg.kmeans_iters) & bkg
+    # fill(core) & fill(fg) == fill(core) for core, a filtered opening of
+    # fg, inside fg
+    seed_mask = morph.binary_fill_holes(lab.remove_small_objects(
+        morph.binary_opening(fg), cfg.lp_seed_min_size, 1))
+
+    markers_all, _ = lab.relabel_sequential(
+        lab.label(seed_mask, 2, cfg.ccl_max_iters))
+    markers = markers_all * bkg.to(torch.int32)
+    seg = ws.watershed(-(enhanced * bkg), markers, fg & bkg, 1,
+                       cfg.watershed_max_iters)
+    seg, n_cells = lab.filter_and_relabel(seg, cfg.lp_cell_min_size)
+
+    zero_i = torch.zeros_like(seg)
+    return Segmentation2D(
+        segmentation=seg,
+        n_cells=n_cells,
+        registered=registered,
+        fov_sum=fov_sum,
+        enhanced=enhanced,
+        adjacency=zero_i,
+        epithelial=zero_i.to(torch.bool),
+    )
+
+
+def _require_multispecies(variant: str) -> None:
+    if variant == "biofilm":
+        raise NotImplementedError(
+            "segment_lpcv: the biofilm variant (log-domain registration, "
+            "adjacency flood, epithelial area) is not ported yet "
+            "(ROADMAP §A.4)")
+    if variant != "multispecies":
+        raise ValueError(f"segment_lpcv: unknown variant {variant!r}")

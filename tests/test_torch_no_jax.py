@@ -1,7 +1,9 @@
 """The port never imports jax nor the JAX package: import every module of
 it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
-and measurement) in a subprocess where any ``import jax`` or ``import
-hiprfish_tpu`` raises (sys.modules[...] = None)."""
+and measurement; the four command lines) in a subprocess where any
+``import jax`` or ``import hiprfish_tpu`` raises (sys.modules[...] =
+None). The command lines run with pandas, matplotlib and imageio blocked
+too, which the GPU machine does not have."""
 
 import os
 import subprocess
@@ -65,11 +67,66 @@ print("cells", int(res.n_cells), int(host.n_cells))
 """
 
 
-def _run(script, fixture_name):
+SCRIPT_CLI = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import os
+import numpy as np
+from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT
+from hiprfish_tpu_torch.utils import synthetic
+from hiprfish_tpu_torch.cli import (classify, classify_spectra, measure,
+                                    measure_multispecies)
+fixtures = os.path.dirname(sys.argv[1])
+os.chdir(sys.argv[2])
+runs = (
+    (TEN_BIT, [5, 37, 515, 1023, 96, 640, 17, 260, 770],
+     ("405", "488", "514", "561", "633"), synthetic.ECOLI_SHIFTS, (9.0, 14.0),
+     "ten_enc_5"),
+    (SEVEN_BIT, [1, 9, 65, 127, 34, 88], ("488", "514", "561", "633"), None,
+     (7.0, 12.0), "seven"),
+)
+for layout, codes, lasers, shifts, axes, sample in runs:
+    fov = synthetic.make_fov(layout, codes, shape=(192, 192), seed=1,
+                             laser_shifts=shifts, cell_axes=axes)
+    names = [f"{sample}_{laser}.npy" for laser in lasers]
+    for name, plane in zip(names, fov["stack"]):
+        np.save(name, plane)
+    if layout is TEN_BIT:
+        measure.main(["-i", *names, "-c", "F", "--max_cells", "64",
+                      "--device", "cpu"])
+        classify.main([f"{sample}_avgint.csv", "-rf",
+                       os.path.join(fixtures, "torch_port_clf_10b_1023x200.npz"),
+                       "--device", "cpu"])
+        suffixes = ("_avgint.csv", "_avgint_norm.csv", "_seg.npy", "_seg.png",
+                    "_cell_ids.txt", "_avgint_ids.csv", "_identification.png")
+    else:
+        measure_multispecies.main(["-i", *names, "--max_cells", "64",
+                                   "--device", "cpu"])
+        classify_spectra.main([
+            "-i", f"{sample}_avgint_norm.csv", "-r",
+            os.path.join(fixtures, "torch_port_clf_7b_127x50.npz"),
+            "--device", "cpu"])
+        suffixes = ("_seg.npy", "_registered.npy", "_avgint_norm.csv",
+                    "_seg.png", "_sum.png", "_enhanced.png",
+                    "_cell_information.csv")
+    for suffix in suffixes:
+        assert os.path.getsize(sample + suffix) > 0, sample + suffix
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+print("cells", len(open("ten_enc_5_cell_ids.txt").read().split()),
+      len(open("seven_cell_information.csv").read().splitlines()))
+"""
+
+
+def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", script, fixture], env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", script, fixture, *args],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     return proc.stdout.split("cells")[-1].split()
 
@@ -83,3 +140,9 @@ def test_port_ecoli_slice_runs_without_jax():
     out = _run(SCRIPT_ECOLI, "torch_port_clf_10b_1023x200.npz")
     n_fused, n_host = (int(v) for v in out)
     assert n_fused == n_host == 9
+
+
+def test_port_clis_run_without_jax_pandas_matplotlib(tmp_path):
+    out = _run(SCRIPT_CLI, "torch_port_clf_10b_1023x200.npz", str(tmp_path))
+    n_ten, n_seven = (int(v) for v in out)
+    assert n_ten == 9 and n_seven == 6

@@ -1,7 +1,9 @@
 """Where the time of the port's 7-bit fov_step, of its 10-bit
-fov_step_ecoli, or of its 3D volume pass, goes on one GPU.
+fov_step_ecoli, of its 3D volume pass, or of a measure command line, goes
+on one GPU.
 
-    python tools/profile_torch_fov.py [--ecoli | --volume] [--out PATH]
+    python tools/profile_torch_fov.py [--ecoli | --volume | --cli-measure
+                                       | --cli-multispecies] [--out PATH]
 
 Runs hiprfish_tpu_torch.pipeline.fused.fov_step on the 2000^2 7-bit FOV
 (400 planted cells, the committed 127-code classifier, max_cells=8192);
@@ -10,7 +12,11 @@ chip_smoke.py phase 11 (400 planted cells, the committed 1023-class
 classifier, max_cells=8192); or with --volume the 3D pass of
 chip_smoke.py phase 8 (tools/bench3d.py's 2020 x 2020 x 170 volume from 8
 tiles: stitch -> segment_3d_tiled -> streamed bf16 measurement ->
-classify), and reports:
+classify); with --cli-measure or --cli-multispecies the command line
+cli.measure -c F (the 10-bit FOV's five .npy planes) or
+cli.measure_multispecies (the 7-bit FOV's four planes) at its default
+flags, in a temporary directory, from reading the planes to the written
+artifacts; and reports:
 
   * per-stage time: every op the step calls is wrapped so that it
     synchronises the card before and after itself; the host clock between
@@ -158,6 +164,67 @@ def _volume_setup(torch, dev):
     return step, stages, 3
 
 
+def _cli_setup(torch, dev, multispecies: bool):
+    """(step, stages) of one measure command line on .npy planes written
+    once into a temporary directory, removed with the step; each step runs
+    the CLI's main there (artifacts overwritten)."""
+    import tempfile
+
+    import chip_smoke as cs
+    from hiprfish_tpu_torch.cli import measure as cli_measure
+    from hiprfish_tpu_torch.cli import measure_multispecies as cli_ms
+    from hiprfish_tpu_torch.io import outputs
+    from hiprfish_tpu_torch.pipeline import fused_ecoli, measure, segment2d
+    from hiprfish_tpu_torch.utils import synthetic
+
+    tmp = tempfile.TemporaryDirectory()
+    fov = synthetic.flagship_fov() if multispecies else synthetic.ecoli_fov()
+    lasers = cs.LASERS_7B if multispecies else cs.LASERS_10B
+    names = [os.path.join(tmp.name, f"fov_{laser}.npy") for laser in lasers]
+    for name, plane in zip(names, fov["stack"]):
+        np.save(name, plane)
+    del fov
+    main = cli_ms.main if multispecies else cli_measure.main
+    argv = ["-i", *names] + ([] if multispecies else ["-c", "F"])
+
+    def step():
+        cwd = os.getcwd()
+        os.chdir(tmp.name)
+        try:
+            main(argv)
+        finally:
+            os.chdir(cwd)
+
+    m = segment2d
+    stages = [
+        (cli_measure.iio, "load_image_stack", "read .npy planes"),
+        (m.reg, "register_translation", "register: FFT shift"),
+        (m.reg, "apply_shift_2d", "register: apply shift"),
+        (measure, "measure_fov", "measure_fov (spectra to host)"),
+        (np, "save", "np.save (_seg, _registered)"),
+        (outputs, "write_png", "PNG writes"),
+        (outputs, "write_csv", "CSV writes (header)"),
+        (np, "savetxt", "CSV writes (savetxt)"),
+    ]
+    if multispecies:
+        stages += [
+            (m.dn, "denoise_nl_means_auto", "NLM (kernel B1)"),
+            (m.lp, "lp_cv_enhance_2d", "LP-CV (kernel B2)"),
+            (m.km, "brightest_cluster_mask", "KMeans"),
+            (m.morph, "binary_opening", "opening"),
+            (m.lab, "remove_small_objects", "small objects (CCL)"),
+            (m.morph, "binary_fill_holes", "fill holes"),
+            (m.lab, "label", "CCL"),
+            (m.lab, "relabel_sequential", "relabel"),
+            (m.ws, "watershed", "watershed"),
+            (m.lab, "filter_and_relabel", "size/border filter"),
+        ]
+    else:
+        stages += [(fused_ecoli, "segment_ecoli_device",
+                    "segment_ecoli_device (B3, B4)")]
+    return step, stages, 3
+
+
 # the device functions of csrc/ (B1-B6 and B3's moments pass)
 PORT_KERNELS = ("nlm_", "lpcv2d_", "label_stats_kernel", "moments_to_table",
                 "label_lookup_kernel", "stats_cm_kernel", "lpcv3d_")
@@ -170,12 +237,18 @@ def main() -> int:
                        help="profile the 10-bit fov_step_ecoli")
     which.add_argument("--volume", action="store_true",
                        help="profile the 3D volume pass")
+    which.add_argument("--cli-measure", action="store_true",
+                       help="profile the 10-bit measure command line")
+    which.add_argument("--cli-multispecies", action="store_true",
+                       help="profile the 7-bit measure command line")
     ap.add_argument("--out", default=None,
                     help="JSON output (default build/profile_torch_fov.json"
-                    ", build/profile_torch_ecoli.json with --ecoli, "
-                    "build/profile_torch_volume.json with --volume)")
+                    ", or build/profile_torch_<ecoli | volume | "
+                    "cli_measure | cli_multispecies>.json)")
     args = ap.parse_args()
-    kind = "volume" if args.volume else "ecoli" if args.ecoli else "fov"
+    kind = ("volume" if args.volume else "ecoli" if args.ecoli
+            else "cli_measure" if args.cli_measure
+            else "cli_multispecies" if args.cli_multispecies else "fov")
     out = args.out or os.path.join(ROOT, "build",
                                    f"profile_torch_{kind}.json")
     sys.path.insert(0, ROOT)
@@ -190,10 +263,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     setup = {"fov": _fov_setup, "ecoli": _ecoli_setup,
-             "volume": _volume_setup}[kind]
+             "volume": _volume_setup,
+             "cli_measure": lambda t, d: _cli_setup(t, d, False),
+             "cli_multispecies": lambda t, d: _cli_setup(t, d, True)}[kind]
     step, stages, reps = setup(torch, dev)
     what = {"fov": "fov_step", "ecoli": "fov_step_ecoli",
-            "volume": "3D pass"}[kind]
+            "volume": "3D pass", "cli_measure": "cli.measure",
+            "cli_multispecies": "cli.measure_multispecies"}[kind]
 
     step()
     torch.cuda.synchronize()
