@@ -87,11 +87,40 @@ non-zero and prints no result:
      the barcode and label columns of _cell_information.csv) and must
      reach 399 and 389 matched cells at accuracy 1.0, the JAX engines'
      counts on these FOVs, with the same artifacts in both calls; print
-     each call's wall seconds.
+     each call's wall seconds and each measure call's peak device memory;
+ 15. the biofilm paths (B1 and B2 on the card): (a) segment_lpcv(...,
+     "biofilm") at bkg_min_size=200, epithelial_disk_radius=6 on the CPU
+     (plain versions) and on the card, on the 192^2 seed-5 FOV (equal
+     n_cells, agreement >= 0.999 for the labels, the adjacency labels and
+     the epithelial mask) and on it with two bright slabs planted
+     (agreement >= 0.999 for the epithelial mask, non-empty on both, and
+     for the labels and the adjacency labels paired one to one on the
+     pixels more than 19 px from the slabs: the slabs' own labels are
+     LP-CV speckle that the denoised image's last bits reseed and
+     renumber, on the CPU as well; so the CPU run's B1 and B2 inputs and
+     its three floods are also replayed on the card, which must give the
+     CPU's outputs: B1 and B2 within TOL, each flood's labels on >= 0.999
+     of the pixels); (b) cli.biofilm -d 2 at its default flags on the
+     2000^2 7-bit FOV's four planes with a probe design of the 127-code
+     classifier's codes, twice (cold, warm): 395 cells (the JAX engine's
+     count), >= 390 of the 400 planted cells matched, barcode accuracy
+     >= 0.99 read back from _cell_information.csv, B1 and B2 launched
+     once per call, the same _seg.npy, _adjacency_seg.npy and CSVs in both
+     calls; print each stage's seconds, the debris count and the peak
+     device memory; (c) the 2000^2 FOV with two slabs planted (all rows of
+     columns 0-399, rows 1400-1999 of columns 1200-1999) through
+     segment_lpcv(..., "biofilm") at the default configuration twice: a
+     non-empty epithelial mask, identical labels and masks; (d)
+     cli.biofilm -z 1 2 on per-laser (Z = 4, 2000, 2000, C_l) .npy stacks
+     of the FOV (per-z weights 0.7, 1.0, 1.0, 0.7, fresh noise per z,
+     lasers 2-4 shifted in x, y and z): per slice the bar of (b) but the
+     count, and B1 and B2 launched once per slice. Z = 4 (of a real
+     stack's tens of slices) is the only cut, for the time limit.
 
-The line before the last is a JSON object with one entry per kernel (its
-launches on each path, errors, times, bound and library call); the last
-line is {"ok": true, "device": {...}}. The script imports neither jax
+At the end the card's line is printed again, then a JSON object with one
+entry per kernel (its launches on each path, errors, times, bound and
+library call) and the other phases' results; the last line is {"ok":
+true, "device": {...}}. The script imports neither jax
 nor the JAX package hiprfish_tpu.
 """
 
@@ -172,6 +201,22 @@ LASERS_7B = ("488", "514", "561", "633")
 # the JAX engines' matched cells on the 2000^2 FOVs at max_cells 4096
 CLI_MATCHED_10B = 399
 CLI_MATCHED_7B = 389
+# phase 15: the kernels of the biofilm paths; the 192^2 FOV's codes
+# (tests/test_biofilm_and_3d.py); the JAX engine's segment count on the
+# 2000^2 FOV (hiprfish_tpu.pipeline.segment2d.segment_lpcv, biofilm, on the
+# CPU); the z-stack's per-z weights, per-laser (x, y, z) shifts and the
+# slices the command line analyses
+PATH_BIOFILM = ("nlm", "lpcv2d")
+# the 192^2 slab FOV's slabs (all rows of columns [0, 40), rows [150, end)
+# of columns [120, end)) and the margin past which 15a holds its labels:
+# NL-means reaches pd + patch // 2 = 14 px, LP-CV 5 more
+SLABS_192 = (40, 150, 120)
+SLAB_MARGIN = 19
+BIOFILM_CODES_192 = (1, 9, 65, 127, 34, 88)
+BIOFILM_CELLS_2000 = 395
+ZSTACK_WEIGHTS = (0.7, 1.0, 1.0, 0.7)
+ZSTACK_SHIFTS = ((0, 0, 0), (3, -2, 1), (-2, 4, 0), (1, 1, -1))
+ZSTACK_SLICES = (1, 2)
 # the order of the kernels line: B3 once per column set, B4 once per shape
 REPORT_ORDER = ("nlm", "lpcv2d", "label_stats[counts]", "label_stats[aux41]",
                 "label_stats[cube7b]", "label_stats[cols10b]",
@@ -623,16 +668,19 @@ def _cli_pass(torch, kernels, measure_main, classify_main, measure_argv,
               classify_argv, sample, table, path, phase_name):
     """One command-line pair twice (cold, warm) in the current directory.
     The measure call's launches are counted from zero in the cold call.
-    Returns (seconds per call, launches, artifacts of the warm call) and
-    fails unless both calls wrote the same segmentation and calls."""
-    seconds, launches, prev = {}, None, None
+    Returns (seconds per call, launches, artifacts of the warm call, peak
+    device memory of each measure call in GiB) and fails unless both
+    calls wrote the same segmentation and calls."""
+    seconds, peaks, launches, prev = {}, {}, None, None
     for turn in ("cold", "warm"):
         if turn == "cold":
             kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         measure_main(measure_argv)
         torch.cuda.synchronize()
         seconds[f"measure {turn}"] = time.time() - t0
+        peaks[f"measure {turn}"] = torch.cuda.max_memory_allocated() / 2**30
         if turn == "cold":
             launches = kernels.launch_counts()
         t0 = time.time()
@@ -649,7 +697,7 @@ def _cli_pass(torch, kernels, measure_main, classify_main, measure_argv,
     if missing:
         raise AssertionError(f"kernels not launched by {phase_name}: "
                              f"{missing}")
-    return seconds, launches, prev
+    return seconds, launches, prev, peaks
 
 
 def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
@@ -687,7 +735,7 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
                     np.save(fname, plane)
                 truth = fov["truth_labels"]
                 del fov
-                seconds, launches, (seg, codebook, idx) = _cli_pass(
+                seconds, launches, (seg, codebook, idx), peaks = _cli_pass(
                     torch, kernels, m_main, c_main, ["-i", *names, *m_flags],
                     c_argv(sample), sample, table, path, f"cli.{name}")
                 n_found = len(codebook) - 1
@@ -701,6 +749,8 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
                       f"{n_found}, matched {matched}, accuracy {acc:.4f} "
                       f"({correct}/{matched}) from the artifacts; seconds "
                       + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+                      + "; peak GiB " + ", ".join(f"{k} {v:.3f}" for k, v
+                                                  in peaks.items())
                       + f"; launches {launches}")
                 if matched != want or correct != matched:
                     raise AssertionError(
@@ -708,12 +758,364 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
                         f"correct, expected {want}/{want}")
                 out[name] = {"n_cells": n_found, "matched": matched,
                              "accuracy": acc, "seconds": seconds,
-                             "launches": launches}
+                             "peak_gib": peaks, "launches": launches}
                 for fname in os.listdir("."):
                     os.remove(fname)
         finally:
             os.chdir(cwd)
     return out
+
+
+def _plant_slabs(stack, band: int, row0: int, col0: int):
+    """Copies of the planes with two bright slabs, each +0.5 x the plane's
+    maximum: all rows of columns [0, band), and rows [row0, end) of
+    columns [col0, end)."""
+    out = []
+    for plane in stack:
+        p = plane.copy()
+        add = 0.5 * p.max()
+        p[:, :band] += add
+        p[row0:, col0:] += add
+        out.append(p)
+    return out
+
+
+def _slab_region(shape, band: int, row0: int, col0: int, margin: int):
+    """Boolean mask of the pixels farther than ``margin`` (Chebyshev) from
+    the slabs of _plant_slabs."""
+    h, w = shape
+    keep = np.ones((h, w), bool)
+    keep[:, :band + margin] = False
+    keep[max(row0 - margin, 0):, max(col0 - margin, 0):] = False
+    return keep
+
+
+def _matched_agreement(a, b, region) -> float:
+    """Share of the ``region``'s pixels on which the label images ``a`` and
+    ``b`` agree once their labels are paired one to one: background with
+    background, then the other pairs greedily by their overlap there,
+    largest first. Label ids may differ; a split, merge or moved boundary
+    costs its pixels."""
+    a = a[region].astype(np.int64)
+    b = b[region].astype(np.int64)
+    pairs, cnt = np.unique((a << 32) | b, return_counts=True)
+    pa, pb = pairs >> 32, pairs & 0xFFFFFFFF
+    good = int(cnt[(pa == 0) & (pb == 0)].sum())
+    used_a, used_b = {0}, {0}
+    for i in np.argsort(-cnt, kind="stable"):
+        x, y = int(pa[i]), int(pb[i])
+        if x not in used_a and y not in used_b:
+            used_a.add(x)
+            used_b.add(y)
+            good += int(cnt[i])
+    return good / max(a.size, 1)
+
+
+def _recorder(fn, log: list):
+    """``fn``, appending (args, kwargs, output) of every call to ``log``;
+    ``fn`` itself is its __wrapped__."""
+    def rec(*a, **kw):
+        out = fn(*a, **kw)
+        log.append((a, kw, out))
+        return out
+    rec.__wrapped__ = fn
+    return rec
+
+
+def _replay_on(torch, dev, stages, log) -> dict:
+    """Each recorded call again on ``dev`` with the recorded inputs: B1 and
+    B2 held to their outputs within TOL, a flood's labels held to >= 0.999
+    of its pixels. {"<key> <i>": {"max_abs_err" or "agreement", "ok"}}."""
+    def to_dev(x):
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    out = {}
+    for mod, attr, key in stages:
+        for i, (a, kw, want) in enumerate(log[key]):
+            got = getattr(mod, attr)(*map(to_dev, a),
+                                     **{k: to_dev(v) for k, v in kw.items()})
+            got = got.cpu()
+            if key == "flood":
+                agree = float((got == want).float().mean())
+                out[f"{key} {i}"] = {"agreement": agree, "ok": agree >= 0.999}
+            else:
+                err = float((got - want).abs().max())
+                out[f"{key} {i}"] = {"max_abs_err": err,
+                                     "ok": err <= TOL[key]}
+    return out
+
+
+def _write_probe_design(path: str, codebook) -> None:
+    """A probe design with one taxon per code of the classifier."""
+    with open(path, "w") as f:
+        f.write("target_taxon,code\n")
+        f.writelines(f"{1000 + i},{c}\n" for i, c in enumerate(codebook))
+
+
+def _biofilm_table(sample: str):
+    """(codebook, code index per label, cell types) from the biofilm
+    _cell_information.csv (the label and cell_barcode columns)."""
+    import csv
+
+    with open(f"{sample}_cell_information.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    by_label = {int(r["label"]): r for r in rows}
+    codes = [by_label[i]["cell_barcode"] for i in range(1, len(rows) + 1)]
+    types = [by_label[i]["type"] for i in range(1, len(rows) + 1)]
+    return ["-"] + codes, np.arange(len(codes) + 1), types
+
+
+def _digests(paths) -> dict:
+    """{path: sha256 of its bytes}."""
+    import hashlib
+
+    out = {}
+    for p in sorted(paths):
+        with open(p, "rb") as f:
+            out[p] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _biofilm_cpu_vs_card(torch, dev) -> dict:
+    """Phase 15a: the biofilm engine on the CPU (plain versions) and on
+    ``dev`` (B1, B2) at 192^2, on the plain FOV and the slab FOV."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.pipeline import segment2d
+    from hiprfish_tpu_torch.utils import synthetic
+
+    out = {}
+    # 15a. CPU (plain versions) against the card (B1, B2) at 192^2. On the
+    # plain FOV every label is held. On the slab FOV the slabs' flat
+    # plateaus seed LP-CV speckle that the last bits of the denoised image
+    # reseed (uniform noise of +-2e-6 on it moves the CPU's own count from
+    # 64 to 63 or 65, tools/biofilm_slab_witness.py), which renumbers the
+    # sequential labels. There the labels and adjacency labels are held,
+    # paired one to one, on the pixels more than SLAB_MARGIN px from the
+    # slabs, the epithelial mask on every pixel, and the stages that work
+    # inside the slabs on the CPU's own inputs: the CPU run's B1 and B2
+    # inputs and its three floods (cells, adjacency, epithelial area) are
+    # recorded and replayed on the card, which must give the CPU's outputs
+    plain = synthetic.make_fov(SEVEN_BIT, list(BIOFILM_CODES_192),
+                               shape=(192, 192), seed=5,
+                               cell_axes=(7.0, 12.0))["stack"]
+    cfg_small = SegmentationConfig(bkg_min_size=200, epithelial_disk_radius=6)
+    away = _slab_region((192, 192), *SLABS_192, SLAB_MARGIN)
+    stages = ((segment2d.dn, "denoise_nl_means_auto", "nlm"),
+              (segment2d.lp, "lp_cv_enhance_2d", "lpcv2d"),
+              (segment2d.ws, "watershed", "flood"))
+    for name, stack in (("plain", plain),
+                        ("slab", _plant_slabs(plain, *SLABS_192))):
+        log = {key: [] for _, _, key in stages}
+        for mod, attr, key in stages:
+            setattr(mod, attr, _recorder(getattr(mod, attr), log[key]))
+        try:
+            cpu_r = segment2d.segment_lpcv(
+                tuple(torch.from_numpy(a) for a in stack), None, cfg_small,
+                128, "biofilm")
+        finally:
+            for mod, attr, _ in stages:
+                setattr(mod, attr, getattr(mod, attr).__wrapped__)
+        gpu_r = segment2d.segment_lpcv(
+            tuple(torch.from_numpy(a).to(dev) for a in stack), None,
+            cfg_small, 128, "biofilm")
+        agree = {k: float((getattr(cpu_r, k) == getattr(gpu_r, k).cpu())
+                          .float().mean())
+                 for k in ("segmentation", "adjacency", "epithelial")}
+        paired = {k: _matched_agreement(getattr(cpu_r, k).numpy(),
+                                        getattr(gpu_r, k).cpu().numpy(), away)
+                  for k in ("segmentation", "adjacency")}
+        replay = _replay_on(torch, dev, stages, log)
+        n_c, n_g = int(cpu_r.n_cells), int(gpu_r.n_cells)
+        epi_px = [int(cpu_r.epithelial.sum()), int(gpu_r.epithelial.sum())]
+        print(f"phase 15a biofilm 192^2 {name} cpu vs gpu: n_cells {n_c} / "
+              f"{n_g}, agreement {agree}, paired agreement more than "
+              f"{SLAB_MARGIN} px from the slabs {paired}, epithelial px "
+              f"{epi_px}; the CPU's stage inputs replayed on the card "
+              f"{replay}")
+        held = ([agree[k] >= 0.999 for k in agree] + [n_c == n_g]
+                if name == "plain" else
+                [paired[k] >= 0.999 for k in paired]
+                + [agree["epithelial"] >= 0.999, 0 not in epi_px])
+        held += [r["ok"] for r in replay.values()]
+        if not all(held):
+            raise AssertionError(f"biofilm 192^2 {name}: the card disagrees "
+                                 f"with the CPU")
+        out[f"192 {name} cpu vs gpu"] = {"n_cells": [n_c, n_g],
+                                         "agreement": agree,
+                                         "paired_agreement_away": paired,
+                                         "epithelial_px": epi_px,
+                                         "stages_replayed": replay}
+    return out
+
+
+def _biofilm_phase(torch, kernels, fixture_7b: str, dev) -> dict:
+    """Phase 15: the biofilm engine on the CPU against the card at 192^2
+    (15a), cli.biofilm -d 2 on the 2000^2 FOV twice (15b), the epithelial
+    branch at full width twice (15c) and cli.biofilm -z 1 2 on a Z = 4
+    stack of the 2000^2 FOV (15d)."""
+    from hiprfish_tpu_torch.cli import biofilm as cli_biofilm
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.pipeline import biofilm, segment2d
+    from hiprfish_tpu_torch.utils import synthetic
+
+    out = _biofilm_cpu_vs_card(torch, dev)
+    fov = synthetic.flagship_fov()
+    truth = fov["truth_labels"]
+    codebook = list(load_classifier(fixture_7b).codebook)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        measure = biofilm.measure_biofilm_images_2d
+        try:
+            _write_probe_design("probes.csv", codebook)
+            flags = ["-p", "probes.csv", "-r", fixture_7b]
+            # 15b. cli.biofilm -d 2 at full width, cold and warm
+            os.mkdir("fov")
+            for laser, plane in zip(LASERS_7B, fov["stack"]):
+                np.save(f"fov/flagship_{laser}.npy", plane)
+            calls = []
+            for turn in ("cold", "warm"):
+                stages = {}
+                biofilm.measure_biofilm_images_2d = (
+                    lambda *a, **kw: measure(*a, timings=stages, **kw))
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                t0 = time.time()
+                cli_biofilm.main(["fov", *flags, "-d", "2"])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = kernels.launch_counts()
+                seg = np.load("fov/flagship_seg.npy")
+                codes, idx, types = _biofilm_table("fov/flagship")
+                n_found = len(codes) - 1
+                correct, matched = _barcode_accuracy(
+                    seg, truth, idx, synthetic.FLAGSHIP_CODES, codes,
+                    SEVEN_BIT, n_found, n_found + 1)
+                acc = correct / max(matched, 1)
+                digest = _digests(
+                    ["fov/flagship_seg.npy", "fov/flagship_adjacency_seg.npy"]
+                    + [f"fov/{n}" for n in os.listdir("fov")
+                       if n.endswith(".csv")])
+                call = {"n_cells": n_found, "matched": matched,
+                        "accuracy": acc, "debris": types.count("debris"),
+                        "seconds": wall, "stages": stages,
+                        "launches": launches,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                print(f"phase 15b cli.biofilm -d 2 {turn} {seg.shape[0]}^2: "
+                      f"n_cells {n_found}, matched {matched}, accuracy "
+                      f"{acc:.4f} ({correct}/{matched}) from the artifacts, "
+                      f"debris {call['debris']}; {wall:.2f} s, stages (s) "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+                      + f"; peak {call['peak_gib']:.2f} GiB; launches "
+                      f"{launches}")
+                if (n_found != BIOFILM_CELLS_2000 or matched < 390
+                        or acc < 0.99):
+                    raise AssertionError(
+                        f"cli.biofilm -d 2: {n_found} cells, {correct}/"
+                        f"{matched} matched correct; expected "
+                        f"{BIOFILM_CELLS_2000} cells, >= 390 matched at "
+                        f">= 0.99")
+                if any(launches[k] != 1 for k in PATH_BIOFILM):
+                    raise AssertionError(f"cli.biofilm -d 2: B1 and B2 must "
+                                         f"launch once, got {launches}")
+                calls.append((digest, call))
+            differ = [p for p in calls[0][0]
+                      if calls[0][0][p] != calls[1][0].get(p)]
+            if differ:
+                raise AssertionError(f"cli.biofilm -d 2: the warm call wrote "
+                                     f"other artifacts than the cold call: "
+                                     f"{differ}")
+            out["cli.biofilm -d 2"] = {"cold": calls[0][1],
+                                       "warm": calls[1][1]}
+            biofilm.measure_biofilm_images_2d = measure
+
+            # 15c. the epithelial branch at full width, twice
+            slabs = _plant_slabs(fov["stack"], 400, 1400, 1200)
+            stack = tuple(torch.from_numpy(a).to(dev) for a in slabs)
+            del slabs
+            runs = []
+            for _ in range(2):
+                t0 = time.time()
+                r = segment2d.segment_lpcv(stack, None, SegmentationConfig(),
+                                           4096, "biofilm")
+                torch.cuda.synchronize()
+                runs.append((r, time.time() - t0))
+            (r1, s1), (r2, s2) = runs
+            same = all(torch.equal(getattr(r1, k), getattr(r2, k)) for k in
+                       ("segmentation", "adjacency", "epithelial"))
+            epi = int(r1.epithelial.sum())
+            print(f"phase 15c epithelial branch 2000^2: n_cells "
+                  f"{int(r1.n_cells)} / {int(r2.n_cells)}, epithelial px "
+                  f"{epi}, calls identical {same}; {s1:.2f} s, {s2:.2f} s")
+            if epi == 0 or not same:
+                raise AssertionError("epithelial branch: empty or not "
+                                     "repeatable")
+            out["epithelial 2000"] = {"n_cells": int(r1.n_cells),
+                                      "epithelial_px": epi,
+                                      "seconds": [s1, s2]}
+            del stack, runs, r, r1, r2
+            torch.cuda.empty_cache()
+
+            # 15d. cli.biofilm -z on a Z = 4 stack (the depth cut)
+            os.mkdir("zstack")
+            rng = np.random.default_rng(15)
+            t0 = time.time()
+            for laser, plane, shift in zip(LASERS_7B, fov["stack"],
+                                           ZSTACK_SHIFTS):
+                vol = np.stack([
+                    w * plane + rng.random(plane.shape, np.float32)
+                    * np.float32(0.02 * plane.mean()) for w in ZSTACK_WEIGHTS])
+                vol = np.roll(vol, (shift[2], shift[0], shift[1]), (0, 1, 2))
+                np.save(f"zstack/zs_{laser}.npy", vol.astype(np.float32))
+                del vol
+            build_s = time.time() - t0
+            del fov
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.time()
+            cli_biofilm.main(["zstack", *flags, "-z",
+                              *map(str, ZSTACK_SLICES)])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            slices = {}
+            for z in ZSTACK_SLICES:
+                seg, codes, idx = _artifact_calls(f"zstack/zs_z_{z}", True)
+                n_found = len(codes) - 1
+                correct, matched = _barcode_accuracy(
+                    seg, truth, idx, synthetic.FLAGSHIP_CODES, codes,
+                    SEVEN_BIT, n_found, n_found + 1)
+                acc = correct / max(matched, 1)
+                slices[z] = {"n_cells": n_found, "matched": matched,
+                             "accuracy": acc}
+                print(f"phase 15d z {z}: n_cells {n_found}, matched "
+                      f"{matched}, accuracy {acc:.4f} ({correct}/{matched})")
+                if matched < 390 or acc < 0.99:
+                    raise AssertionError(f"cli.biofilm -z slice {z}: "
+                                         f"{correct}/{matched}")
+            print(f"phase 15d cli.biofilm -z {list(ZSTACK_SLICES)} on "
+                  f"{len(ZSTACK_WEIGHTS)} x 2000^2 x 63: {wall:.2f} s (stacks "
+                  f"written in {build_s:.1f} s), peak {peak:.2f} GiB, "
+                  f"launches {launches}")
+            if any(launches[k] != len(ZSTACK_SLICES) for k in PATH_BIOFILM):
+                raise AssertionError("cli.biofilm -z: B1 and B2 must launch "
+                                     "once per slice")
+            out["cli.biofilm -z"] = {"slices": slices, "seconds": wall,
+                                     "peak_gib": peak, "launches": launches}
+        finally:
+            biofilm.measure_biofilm_images_2d = measure
+            os.chdir(cwd)
+    return out
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def _smooth_image(shape, seed: int):
@@ -742,11 +1144,7 @@ def main() -> int:
 
     # 1. the card
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_card_line())
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
 
@@ -1279,6 +1677,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     clis = _cli_phase(torch, kernels, FIXTURE_10B, FIXTURE)
 
+    # 15. the biofilm engine, cli.biofilm -d 2 and -z
+    torch.cuda.empty_cache()
+    bio = _biofilm_phase(torch, kernels, FIXTURE, dev)
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -1286,7 +1688,11 @@ def main() -> int:
                                PATH_CLI_MEASURE),
                "cli.measure_multispecies": (
                    clis["measure_multispecies"]["launches"],
-                   PATH_CLI_MULTISPECIES)}
+                   PATH_CLI_MULTISPECIES),
+               "cli.biofilm -d 2": (
+                   bio["cli.biofilm -d 2"]["cold"]["launches"], PATH_BIOFILM),
+               "cli.biofilm -z": (bio["cli.biofilm -z"]["launches"],
+                                  PATH_BIOFILM)}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -1297,8 +1703,11 @@ def main() -> int:
             "launches_by_path": {name: c[k] * (k in p)
                                  for name, (c, p) in by_path.items()},
             **report[key]})
+    # the card's line again beside the results (the first one may be far
+    # above them in a long output)
+    print(_card_line())
     print(json.dumps({"kernels": entries, "domains": domains,
-                      "clis": clis}))
+                      "clis": clis, "biofilm": bio}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,7 @@ python -m hiprfish_tpu_torch.cli.measure              (10-bit measurement)
 python -m hiprfish_tpu_torch.cli.classify             (10-bit classification)
 python -m hiprfish_tpu_torch.cli.measure_multispecies (7-bit measurement)
 python -m hiprfish_tpu_torch.cli.classify_spectra     (7-bit classification)
+python -m hiprfish_tpu_torch.cli.biofilm              (biofilm 2D / z-slice)
 """
 
 import torch

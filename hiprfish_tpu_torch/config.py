@@ -18,6 +18,7 @@ from typing import Tuple
 class ChannelLayout:
     """Spectral channel layout of one experiment family."""
 
+    lasers: Tuple[str, ...]        # excitation wavelengths, nm, as named
     n_channels: int
     block_bounds: Tuple[int, ...]  # len == n_lasers + 1
     n_bits: int
@@ -39,6 +40,7 @@ class ChannelLayout:
 # 5 lasers: 405, 488, 514, 561, 633 nm; the sixth check group belongs to
 # the violet-derivative block, which has no channels of its own
 TEN_BIT = ChannelLayout(
+    lasers=("405", "488", "514", "561", "633"),
     n_channels=95,
     block_bounds=(0, 32, 55, 75, 89, 95),
     n_bits=10,
@@ -54,6 +56,7 @@ TEN_BIT = ChannelLayout(
 
 # 4 lasers: 488, 514, 561, 633 nm
 SEVEN_BIT = ChannelLayout(
+    lasers=("488", "514", "561", "633"),
     n_channels=63,
     block_bounds=(0, 23, 43, 57, 63),
     n_bits=7,
@@ -106,3 +109,11 @@ class SegmentationConfig:
     watershed_max_iters: int = 256
     ccl_max_iters: int = 512
     scan_cap: int = 16
+    # biofilm: the epithelial area (background objects below bkg_min_size
+    # dropped, closed and dilated by a disk of epithelial_disk_radius) and
+    # the debris filter (area above debris_area_max, or a classification
+    # probability at most debris_prob_min)
+    bkg_min_size: int = 10000
+    epithelial_disk_radius: int = 100
+    debris_area_max: int = 10000
+    debris_prob_min: float = 0.95

@@ -1,4 +1,4 @@
-"""Spectral image planes (a copy of the plane loaders of
+"""Spectral image planes and z-stacks (a copy of the loaders of
 hiprfish_tpu/io/images.py): ``.npy`` with numpy, ``.tif`` through imageio,
 imported only when a ``.tif`` is read. The Zeiss ``.czi`` reader is not
 ported yet (ROADMAP §A.7) and raises."""
@@ -16,9 +16,7 @@ def load_image(filename: str) -> np.ndarray:
     if ext == ".npy":
         return np.asarray(np.load(filename))
     if ext == ".czi":
-        raise NotImplementedError(
-            f"{filename}: the .czi reader is not ported yet (ROADMAP §A.7); "
-            "convert the planes to .npy")
+        raise _czi_not_ported(filename)
     if ext in (".tif", ".tiff"):
         import imageio.v3 as iio
 
@@ -29,9 +27,29 @@ def load_image(filename: str) -> np.ndarray:
     raise ValueError(f"unsupported image format: {filename}")
 
 
+def _czi_not_ported(filename: str):
+    return NotImplementedError(
+        f"{filename}: the .czi reader is not ported yet (ROADMAP §A.7); "
+        "convert the planes to .npy")
+
+
 def load_image_stack(filenames) -> list:
     """Per-laser image planes of one FOV."""
     return [load_image(f) for f in filenames]
+
+
+def load_image_zstack_fixed_t(filename: str) -> np.ndarray:
+    """(X, Y, Z, C) z-stack at the first time point: a ``.npy`` stored as
+    (Z, H, W, C) becomes (H, W, Z, C)."""
+    ext = os.path.splitext(filename)[1].lower()
+    if ext == ".npy":
+        arr = np.load(filename)
+        if arr.ndim == 4:
+            return np.moveaxis(arr, 0, 2)
+        raise ValueError(f"npy z-stack must be (Z, H, W, C): {filename}")
+    if ext == ".czi":
+        raise _czi_not_ported(filename)
+    raise ValueError(filename)
 
 
 def load_calibration_image(filename: str) -> np.ndarray:

@@ -10,6 +10,9 @@ Per FOV:
   {sample}_cell_ids.txt      one barcode string per cell
   {sample}_avgint_ids.csv    features + ids (10-bit)
   {sample}_cell_information.csv  the 7-bit cell table
+  biofilm: the cell tables, adjacency matrices and taxon colour lookup
+           (write_frame: named, typed columns with an optional index),
+           and the identification renders (write_png of the RGB image)
 
 The CSV writers give the bytes pandas' ``to_csv`` gives: each float cell
 as numpy's shortest repr of its dtype (``str(np.float32(v))``), NaN as an
@@ -59,6 +62,22 @@ def write_csv(path: str, cells: np.ndarray, header=None) -> None:
     lines += [",".join(_csv_field(v) for v in row) for row in cells]
     with open(path, "w", newline="") as f:
         f.write("".join(line + "\n" for line in lines))
+
+
+def write_frame(path: str, columns, index=None, header: bool = True) -> None:
+    """Named columns [(name, values), ...] as pandas' DataFrame.to_csv
+    writes them: each cell as cells_as_text gives it for its column's
+    dtype, an index column first (its header cell empty) when ``index``
+    holds the row labels, and a header row of the names unless ``header``
+    is False."""
+    n = len(columns[0][1]) if columns else len(index)
+    cells = [cells_as_text(v).reshape(n, 1) for _, v in columns]
+    names = [name for name, _ in columns]
+    if index is not None:
+        cells.insert(0, cells_as_text(index).reshape(n, 1))
+        names.insert(0, "")
+    write_csv(path, np.concatenate(cells, axis=1) if cells
+              else np.zeros((n, 0), str), names if header else None)
 
 
 def save_avgint_norm_csv_with_header(path: str,
@@ -123,7 +142,8 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(_png_chunk(b"IEND", b""))
 
 
-def _rgb_bytes(rgb: np.ndarray) -> np.ndarray:
+def rgb_bytes(rgb: np.ndarray) -> np.ndarray:
+    """float RGB in [0, 1] as uint8, rounded to nearest."""
     return np.rint(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
@@ -174,14 +194,14 @@ def save_segmentation(segmentation: np.ndarray, sample: str) -> None:
     """Persist {sample}_seg.npy and its _seg.png label2rgb render."""
     seg = np.asarray(segmentation)
     np.save(sample + "_seg.npy", seg)
-    write_png(sample + "_seg.png", _rgb_bytes(label2rgb(seg)))
+    write_png(sample + "_seg.png", rgb_bytes(label2rgb(seg)))
 
 
 def save_identification_png(labels: np.ndarray, sample: str) -> None:
     """{sample}_identification.png: a barcode-valued label image through
     label2rgb."""
     write_png(sample + "_identification.png",
-              _rgb_bytes(label2rgb(np.asarray(labels).astype(np.int64))))
+              rgb_bytes(label2rgb(np.asarray(labels).astype(np.int64))))
 
 
 def save_sum_png(image: np.ndarray, sample: str,

@@ -1,9 +1,15 @@
-"""Sample-name parsers of the experiment tables (a copy of the name
-helpers of hiprfish_tpu/io/tables.py, without its pandas table reader)."""
+"""Sample-name parsers and the probe-design reader of the experiment
+tables (a copy of the name helpers of hiprfish_tpu/io/tables.py, and its
+probe-design reader with the csv module in place of pandas)."""
 
 from __future__ import annotations
 
+import csv
 import re
+
+import numpy as np
+
+_INT = re.compile(r"^\s*[+-]?[0-9]+\s*$")
 
 
 def parse_encoding(image_name: str) -> int:
@@ -24,3 +30,31 @@ def parse_fov(image_name: str) -> int:
 def sample_from_image_name(image_name: str) -> str:
     """Strip the '_<laser>.<ext>' suffix of a per-laser image name."""
     return re.sub(r"_[0-9]*\.(czi|npy|tif|tiff)$", "", image_name)
+
+
+def _typed_column(texts):
+    """A CSV column as pandas' read_csv types it: int64 when every field
+    is an integer, float64 (empty fields NaN) when every field is a
+    number, else the text (empty fields stay empty)."""
+    if texts and all(_INT.match(t) for t in texts):
+        return np.array([int(t) for t in texts], np.int64)
+    try:
+        return np.array([float(t) if t != "" else np.nan for t in texts],
+                        np.float64)
+    except ValueError:
+        return np.array(texts, dtype=object)
+
+
+def read_probe_design(path: str) -> dict:
+    """Probe-design CSV as {column: numpy array}, in the file's column
+    order; ``code`` stays text (leading zeros kept), the other columns are
+    typed as pandas' read_csv types them."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], [r for r in rows[1:] if r]
+    cols = {}
+    for j, name in enumerate(header):
+        texts = [r[j] if j < len(r) else "" for r in body]
+        cols[name] = (np.array(texts, dtype=object) if name == "code"
+                      else _typed_column(texts))
+    return cols

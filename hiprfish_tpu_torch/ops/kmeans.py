@@ -4,7 +4,7 @@ hiprfish_tpu/ops/kmeans.py).
 On the CPU the histogram's bin sums are sequential f32 sums, as the
 reference's, and the masks equal the reference's. On CUDA an f32
 ``index_add_`` would add in the atomics' run-dependent order, so the bins
-are summed in fixed point instead (``fixed_point_bin_sums``): each value's
+are summed in fixed point instead (``fp.segment_sum``): each value's
 offset from the minimum as an int64 multiple of span / 2^40, summed exactly
 in any order and rounded once to f32. Two calls on the card then give the
 same centres bitwise. Against the CPU the bins differ by a few ulps (one
@@ -17,29 +17,12 @@ from __future__ import annotations
 
 import torch
 
+from hiprfish_tpu_torch.ops import fp
+
 # fixed-point resolution of the card's bin sums: a value's offset from the
 # minimum is rounded to a multiple of span / 2^40; at most 2^19 + 512 values
 # of at most ~2^40 each keep every int64 sum below 2^60
 FIX_BITS = 40
-
-
-def fixed_point_bin_sums(idx: torch.Tensor, vs: torch.Tensor,
-                         vmin: torch.Tensor, span: torch.Tensor,
-                         n_bins: int):
-    """(counts, sums) as f32 of the values ``vs`` in the bins ``idx``, the
-    same bits for any order of the values: each offset vs - vmin (exact in
-    f64) becomes round(offset * 2^40 / span) in int64, the bins add those
-    integers (exact in any order, atomics included), and each bin's sum
-    count * vmin + total * span / 2^40 is rounded once to f32. A sum is
-    within count * span * 2^-41 of the exact one before that rounding."""
-    scale = (2.0 ** FIX_BITS) / span.to(torch.float64)
-    q = torch.round((vs.to(torch.float64) - vmin.to(torch.float64))
-                    * scale).to(torch.int64)
-    cs = torch.zeros((n_bins, 2), dtype=torch.int64, device=vs.device)
-    cs.index_add_(0, idx, torch.stack([torch.ones_like(q), q], dim=-1))
-    counts = cs[:, 0].to(torch.float64)
-    sums = counts * vmin.to(torch.float64) + cs[:, 1].to(torch.float64) / scale
-    return counts.to(torch.float32), sums.to(torch.float32)
 
 
 def _value_histogram(values: torch.Tensor, n_bins: int):
@@ -61,13 +44,9 @@ def _value_histogram(values: torch.Tensor, n_bins: int):
         vs = v
     idx = torch.clamp(((vs - vmin) / span * (n_bins - 1)).to(torch.int32),
                       0, n_bins - 1)
-    if v.device.type == "cuda":
-        counts, sums = fixed_point_bin_sums(idx, vs, vmin, span, n_bins)
-    else:
-        cs = torch.zeros((n_bins, 2), dtype=torch.float32, device=v.device)
-        cs.index_add_(0, idx, torch.stack([torch.ones_like(vs), vs], dim=-1))
-        counts = cs[:, 0]
-        sums = cs[:, 1]
+    counts, sums = fp.segment_sum(vs[:, None], idx, n_bins, span=span,
+                                  offset=vmin, bits=FIX_BITS)
+    sums = sums[:, 0]
     bin_centers = torch.where(counts > 0,
                               sums / torch.clamp(counts, min=1.0),
                               torch.zeros_like(sums))
@@ -112,6 +91,23 @@ def kmeans1d_centers(values: torch.Tensor, k: int, iters: int = 40,
                      n_bins: int = 2048) -> torch.Tensor:
     """Sorted-ascending cluster centres of the values."""
     return _lloyd_from_histogram(*_value_histogram(values, n_bins), k, iters)
+
+
+def kmeans1d(values: torch.Tensor, k: int, iters: int = 40,
+             n_bins: int = 2048):
+    """(int32 labels of the values' shape, sorted-ascending centres): each
+    value takes its nearest centre, the lower index on a tie."""
+    centers = kmeans1d_centers(values, k, iters, n_bins)
+    v = values.reshape(-1).to(torch.float32)
+    labels = torch.argmin(torch.abs(v[:, None] - centers[None, :]), dim=1)
+    return labels.reshape(values.shape).to(torch.int32), centers
+
+
+def darkest_cluster_mask(image: torch.Tensor, k: int = 2,
+                         iters: int = 40) -> torch.Tensor:
+    """Boolean mask of the values nearest the lowest centre."""
+    labels, _ = kmeans1d(image, k, iters)
+    return labels == 0
 
 
 def brightest_cluster_mask(image: torch.Tensor, k: int = 2,

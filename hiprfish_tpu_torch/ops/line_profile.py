@@ -143,9 +143,12 @@ def quartile_ranks(t: int):
     return (lo25, hi25, q25 - lo25), (lo75, hi75, q75 - lo75)
 
 
-def _lp_cv_combine(rnc_stack: torch.Tensor) -> torch.Tensor:
-    """mean(rnc) * (1 - quartile CV) over the last axis (T orientations)."""
-    mean = torch.mean(rnc_stack, dim=-1)
+def _lp_cv_combine(rnc_stack: torch.Tensor,
+                   mean: torch.Tensor | None = None) -> torch.Tensor:
+    """mean(rnc) * (1 - quartile CV) over the last axis (T orientations);
+    ``mean`` is the mean of the orientations, if the caller has it."""
+    if mean is None:
+        mean = torch.mean(rnc_stack, dim=-1)
     s = torch.sort(rnc_stack, dim=-1).values
     (lo25, hi25, f25), (lo75, hi75, f75) = quartile_ranks(rnc_stack.shape[-1])
     lq = s[..., lo25] * (1 - f25) + s[..., hi25] * f25
@@ -158,7 +161,9 @@ def _lp_cv_combine(rnc_stack: torch.Tensor) -> torch.Tensor:
 def lp_cv_enhance_2d_plain(image: torch.Tensor, patch_size: int = 11,
                            phi_range: int = 9) -> torch.Tensor:
     """Plain-torch LP-CV: edge pad, per-orientation min/max/centre over
-    shifted views, normalize, combine."""
+    shifted views, normalize, combine. The orientations' mean is their sum
+    in order times the float32 reciprocal of phi_range, as the reference's
+    CPU program computes it."""
     pad = (patch_size - 1) // 2
     img = image.to(torch.float32)
     padded = F.pad(img[None, None], (pad, pad, pad, pad),
@@ -177,7 +182,11 @@ def lp_cv_enhance_2d_plain(image: torch.Tensor, patch_size: int = 11,
                 vcenter = v
         rng = torch.clamp(vmax - vmin, min=1e-8)
         rnc.append((vcenter - vmin) / rng)
-    return _lp_cv_combine(torch.stack(rnc, dim=-1))
+    total = rnc[0]
+    for r in rnc[1:]:
+        total = total + r
+    return _lp_cv_combine(torch.stack(rnc, dim=-1),
+                          total * np.float32(1.0 / phi_range))
 
 
 def lp_cv_enhance_2d(image: torch.Tensor, patch_size: int = 11,

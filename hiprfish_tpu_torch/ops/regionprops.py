@@ -1,6 +1,5 @@
-"""Per-label region properties by scatter-add (torch port of
-hiprfish_tpu/ops/regionprops.py, the 2D functions the host engine and the
-per-cell measurement run).
+"""Per-label region properties by scatter (torch port of the 2D functions
+of hiprfish_tpu/ops/regionprops.py).
 
 Shape properties follow skimage's central-moment definitions: inertia
 eigenvalues lambda1 >= lambda2, major_axis = 4*sqrt(lambda1),
@@ -11,6 +10,8 @@ against the row axis.
 from __future__ import annotations
 
 import torch
+
+from hiprfish_tpu_torch.ops import fp
 
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
@@ -26,13 +27,13 @@ def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
 def channel_sums(labels: torch.Tensor, image: torch.Tensor,
                  num_segments: int):
     """((num_segments, C) per-label channel sums, (num_segments, 1) pixel
-    counts) of a labels.shape + (C,) image, in float32."""
-    ids = labels.reshape(-1).to(torch.int64)
-    img = image.reshape(-1, image.shape[-1]).to(torch.float32)
-    sums = _segment_sum(img, ids, num_segments)
-    counts = _segment_sum(torch.ones((ids.shape[0], 1), dtype=torch.float32,
-                                     device=ids.device), ids, num_segments)
-    return sums, counts
+    counts) of a labels.shape + (C,) image, in float32: in pixel order on
+    the CPU, as the reference's, and the same bits in every run on the
+    card (fp.segment_sum)."""
+    counts, sums = fp.segment_sum(
+        image.reshape(-1, image.shape[-1]).to(torch.float32),
+        labels.reshape(-1).to(torch.int64), num_segments)
+    return sums, counts[:, None]
 
 
 def mean_intensities(labels: torch.Tensor, image: torch.Tensor,
@@ -44,13 +45,29 @@ def mean_intensities(labels: torch.Tensor, image: torch.Tensor,
     return sums / torch.clamp(counts, min=1.0)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c rounded once, as a fused multiply-add: the
-    product of two float32 values is exact in float64, so only the float64
-    sum rounds before the float32 cast (a double rounding that differs
-    from a true FMA only on exact float32 midpoints)."""
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
+def max_intensities(labels: torch.Tensor, image: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """(num_segments, C) per-label maximum of every channel, as
+    jax.ops.segment_max: -inf for labels with no pixel, and pixels whose
+    label lies outside [0, num_segments) dropped."""
+    ids = labels.reshape(-1).to(torch.int64)
+    img = image.reshape(-1, image.shape[-1]).to(torch.float32)
+    keep = torch.nonzero((ids >= 0) & (ids < num_segments)).squeeze(1)
+    out = torch.full((num_segments, img.shape[1]), -torch.inf,
+                     dtype=torch.float32, device=img.device)
+    idx = ids[keep][:, None].expand(-1, img.shape[1])
+    return out.scatter_reduce_(0, idx, img[keep], reduce="amax")
+
+
+def label_overlap_any(labels: torch.Tensor, mask: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """(num_segments,) bool: does any pixel of the label lie in ``mask``
+    (labels outside [0, num_segments) dropped)."""
+    ids = labels.reshape(-1).to(torch.int64)
+    sel = mask.reshape(-1).to(torch.bool) & (ids >= 0) & (ids < num_segments)
+    hit = torch.zeros(num_segments, dtype=torch.bool, device=labels.device)
+    hit[ids[sel]] = True
+    return hit
 
 
 def shape_props_2d(labels: torch.Tensor, num_segments: int) -> dict:
@@ -80,20 +97,21 @@ def shape_props_2d(labels: torch.Tensor, num_segments: int) -> dict:
     # extent in the inertia tensor; E[r^2] - rbar^2 and the discriminant
     # round once per multiply-add, as the reference's compiled program
     # (which contracts them into FMAs) does: the cancellation in mu20
-    # turns a rounding step into ~1e-5 of the axis lengths
-    mu20 = _fma(-rbar, rbar, sums[:, 3] / n) + 1.0 / 12.0
-    mu02 = _fma(-cbar, cbar, sums[:, 4] / n) + 1.0 / 12.0
-    mu11 = _fma(-rbar, cbar, sums[:, 5] / n)
+    # turns a rounding step into ~1e-5 of the axis lengths; the square
+    # roots are correctly rounded, as the reference's are
+    mu20 = fp.fma(-rbar, rbar, sums[:, 3] / n) + 1.0 / 12.0
+    mu02 = fp.fma(-cbar, cbar, sums[:, 4] / n) + 1.0 / 12.0
+    mu11 = fp.fma(-rbar, cbar, sums[:, 5] / n)
     d = mu20 - mu02
-    common = torch.sqrt(torch.clamp(_fma(d, d, 4 * mu11 * mu11), min=0.0))
+    common = fp.sqrt(torch.clamp(fp.fma(4 * mu11, mu11, d * d), min=0.0))
     lam1 = torch.clamp((mu20 + mu02 + common) / 2.0, min=1e-12)
     lam2 = torch.clamp((mu20 + mu02 - common) / 2.0, min=0.0)
     return {
         "area": sums[:, 0],
         "centroid_r": rbar,
         "centroid_c": cbar,
-        "major_axis_length": 4.0 * torch.sqrt(lam1),
-        "minor_axis_length": 4.0 * torch.sqrt(lam2),
-        "eccentricity": torch.sqrt(torch.clamp(1.0 - lam2 / lam1, 0.0, 1.0)),
-        "orientation": 0.5 * torch.atan2(-2.0 * mu11, mu20 - mu02),
+        "major_axis_length": 4.0 * fp.sqrt(lam1),
+        "minor_axis_length": 4.0 * fp.sqrt(lam2),
+        "eccentricity": fp.sqrt(torch.clamp(1.0 - lam2 / lam1, 0.0, 1.0)),
+        "orientation": 0.5 * fp.atan2(-2.0 * mu11, mu20 - mu02),
     }

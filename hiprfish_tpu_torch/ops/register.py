@@ -45,6 +45,26 @@ def apply_shift_2d(image: torch.Tensor, shift):
     return rolled * valid.to(rolled.dtype), mask
 
 
+def apply_shift_3d(volume: torch.Tensor, shift):
+    """Shift an (X, Y, Z, ...) volume by integer (x, y, z) and return
+    (shifted, valid_mask (X, Y, Z)): zeros outside the overlap, in the
+    volume's dtype. The shift is read back to the host once, as in
+    apply_shift_2d."""
+    sx, sy, sz = (int(v) for v in torch.as_tensor(shift).tolist())
+    x, y, z = volume.shape[0], volume.shape[1], volume.shape[2]
+    dev = volume.device
+    rolled = torch.roll(volume, shifts=(sx, sy, sz), dims=(0, 1, 2))
+    xi = torch.arange(x, device=dev)[:, None, None]
+    yi = torch.arange(y, device=dev)[None, :, None]
+    zi = torch.arange(z, device=dev)[None, None, :]
+    valid = ((xi - sx >= 0) & (xi - sx < x) & (yi - sy >= 0) & (yi - sy < y)
+             & (zi - sz >= 0) & (zi - sz < z))
+    mask = valid
+    if volume.ndim > 3:
+        valid = valid.reshape(valid.shape + (1,) * (volume.ndim - 3))
+    return rolled * valid.to(rolled.dtype), mask
+
+
 def clamp_shift(shift: torch.Tensor, max_shift: float,
                 enabled: bool = True) -> torch.Tensor:
     """Zero out implausibly large shifts."""
@@ -75,3 +95,17 @@ def register_translation_3d(reference: torch.Tensor,
     shape = shape.to(torch.float32)
     midpoints = torch.floor(shape / 2)
     return torch.where(maxima > midpoints, maxima - shape, maxima)
+
+
+def register_stack_2d(images_sum, max_shift: float | None = 15.0):
+    """(n, 2) float32 shifts of a sequence of (H, W) projections against the
+    first one (first row zeros), each zeroed where it exceeds ``max_shift``
+    unless that is None."""
+    ref = images_sum[0]
+    shifts = [torch.zeros((2,), dtype=torch.float32, device=ref.device)]
+    for img in images_sum[1:]:
+        s = register_translation(ref, img)
+        if max_shift is not None:
+            s = clamp_shift(s, max_shift)
+        shifts.append(s)
+    return torch.stack(shifts)

@@ -138,7 +138,12 @@ def classify_device(avgint_norm, check_heads, check_blocks, scaler_mean,
     w = torch.softmax(neg_d * temperature, dim=1)
     scores = torch.zeros((feats.shape[0], n_classes), dtype=torch.float32,
                          device=feats.device)
-    scores.scatter_add_(1, nb, w)
+    # one neighbour rank at a time: within a call every row adds to one
+    # class, so no two additions race, and each class sums its
+    # neighbours' weights nearest first on every device, as the
+    # reference's in-order scatter
+    for j in range(nb.shape[1]):
+        scores.scatter_add_(1, nb[:, j:j + 1], w[:, j:j + 1])
     # argmax takes the first index on ties, as jnp.argmax
     code_idx = torch.argmax(scores, dim=1).to(torch.int32)
     max_prob = torch.max(scores, dim=1).values

@@ -8,12 +8,16 @@ border filters -> minor-axis gate with per-cell double erosion ->
 sequential labels. The erosion loop reads one boolean back to the host
 per round.
 
-``segment_lpcv`` is the synthetic-community LP-CV engine: register on
-full-frame sum projections (unclamped) -> channel sum -> max-normalise ->
-NL-means (kernel B1 on the card) -> LP-CV (kernel B2) -> two KMeans masks
--> opening, small-object removal, fill holes -> CCL and relabel ->
-watershed on the enhanced image -> size and border filter. Its biofilm
-variant is not ported yet (ROADMAP §A.4).
+``segment_lpcv`` is the LP-CV engine: register on full-frame sum
+projections (unclamped) -> channel sum -> max-normalise -> NL-means (kernel
+B1 on the card) -> LP-CV (kernel B2) -> two KMeans masks -> opening,
+small-object removal, fill holes -> CCL and relabel -> watershed. The
+multispecies variant floods the enhanced image and filters the cells by
+size and border. The biofilm variant registers on the log projections,
+clusters the background on log10 of the denoised image, floods the
+denoised image, keeps every cell, floods the channel sum over the whole
+background for the adjacency segmentation and marks the epithelial area
+(``_epithelial_area``).
 
 Both run eagerly on the device of their inputs.
 """
@@ -26,6 +30,7 @@ import torch
 
 from hiprfish_tpu_torch.config import SegmentationConfig
 from hiprfish_tpu_torch.ops import denoise as dn
+from hiprfish_tpu_torch.ops import fp
 from hiprfish_tpu_torch.ops import kmeans as km
 from hiprfish_tpu_torch.ops import labeling as lab
 from hiprfish_tpu_torch.ops import line_profile as lp
@@ -43,14 +48,17 @@ class Segmentation2D(NamedTuple):
     registered: torch.Tensor     # (H, W, C) registered (uncorrected) image
     fov_sum: torch.Tensor        # (H, W) registered channel sum
     enhanced: torch.Tensor       # (H, W) surface used for flooding
-    adjacency: torch.Tensor      # (H, W) int32 adjacency segmentation (0s)
-    epithelial: torch.Tensor     # (H, W) bool epithelial area (False)
+    adjacency: torch.Tensor      # (H, W) int32 adjacency segmentation (or 0s)
+    epithelial: torch.Tensor     # (H, W) bool epithelial area (or False)
 
 
-def _register_stack(image_stack, projections, max_shift, clamp):
+def _register_stack(image_stack, projections, max_shift, clamp,
+                    log_domain=False):
     """Register per-laser images to laser 0 on their full-frame projections
-    and concatenate the channels. Returns (registered (H, W, C), overlap
-    mask (H, W))."""
+    (on log(p + 1e-8) with ``log_domain``) and concatenate the channels.
+    Returns (registered (H, W, C), overlap mask (H, W))."""
+    if log_domain:
+        projections = [torch.log(p + 1e-8) for p in projections]
     ref = projections[0]
     parts = [image_stack[0]]
     overlap = torch.ones(ref.shape, dtype=torch.bool, device=ref.device)
@@ -171,12 +179,13 @@ def segment_lpcv(image_stack, calibration=None,
     image_stack: sequence of per-laser (H, W, C_l) float32 tensors on one
     device; calibration: None or a tensor the registered cube is divided
     by. The shifts come from FFT correlation of the full-frame per-laser
-    channel sums and are not clamped; the cube stays float32."""
-    _require_multispecies(variant)
+    channel sums (their logs for the biofilm variant) and are not clamped;
+    the cube stays float32."""
+    biofilm = _is_biofilm(variant)
     image_stack = tuple(torch.as_tensor(a) for a in image_stack)
-    projections = [torch.sum(img, dim=2) for img in image_stack]
+    projections = [fp.sum_in_order(img, 2) for img in image_stack]
     registered, _ = _register_stack(image_stack, projections, cfg.max_shift,
-                                    clamp=False)
+                                    clamp=False, log_domain=biofilm)
     if calibration is not None:
         registered = registered / torch.as_tensor(calibration,
                                                   device=registered.device)
@@ -188,18 +197,20 @@ def segment_lpcv_from_registered(
         max_cells: int = 4096,
         variant: str = "multispecies") -> Segmentation2D:
     """LP-CV segmentation of an already-registered (H, W, C) image.
-    ``max_cells`` does not bound the multispecies labels (the reference's
-    neither); it bounds the measurement that follows."""
-    _require_multispecies(variant)
+    ``max_cells`` does not bound the labels (the reference's neither); it
+    bounds the measurement that follows."""
+    biofilm = _is_biofilm(variant)
     registered = torch.as_tensor(registered)
-    fov_sum = torch.sum(registered, dim=2)
+    fov_sum = fp.sum_in_order(registered, 2)
     sum_norm = fov_sum / torch.clamp(torch.max(fov_sum), min=1e-12)
     denoised = dn.denoise_nl_means_auto(sum_norm, cfg.nlm_h,
                                         cfg.nlm_patch_size,
                                         cfg.nlm_patch_distance)
     enhanced = lp.lp_cv_enhance_2d(denoised, cfg.patch_size, cfg.phi_range)
 
-    bkg = km.brightest_cluster_mask(denoised, 2, cfg.kmeans_iters)
+    # log10 as the reference computes it: log(x) times 1/ln(10) in float32
+    bkg_src = torch.log(denoised + 1e-8) * _INV_LN10 if biofilm else denoised
+    bkg = km.brightest_cluster_mask(bkg_src, 2, cfg.kmeans_iters)
     # every seed and flood mask is cut to the intensity foreground anyway,
     # so intersect first: the same seeds, compact blobs for the floods
     fg = km.brightest_cluster_mask(enhanced, 2, cfg.kmeans_iters) & bkg
@@ -207,31 +218,75 @@ def segment_lpcv_from_registered(
     # fg, inside fg
     seed_mask = morph.binary_fill_holes(lab.remove_small_objects(
         morph.binary_opening(fg), cfg.lp_seed_min_size, 1))
+    if biofilm:
+        surface = -(denoised * bkg)
+        seed_mask = lab.remove_small_objects(seed_mask & bkg,
+                                             cfg.lp_seed_min_size, 1)
+    else:
+        surface = -(enhanced * bkg)
 
     markers_all, _ = lab.relabel_sequential(
         lab.label(seed_mask, 2, cfg.ccl_max_iters))
     markers = markers_all * bkg.to(torch.int32)
-    seg = ws.watershed(-(enhanced * bkg), markers, fg & bkg, 1,
+    seg = ws.watershed(surface, markers, fg & bkg, 1,
                        cfg.watershed_max_iters)
-    seg, n_cells = lab.filter_and_relabel(seg, cfg.lp_cell_min_size)
-
-    zero_i = torch.zeros_like(seg)
+    if biofilm:
+        seg, n_cells = lab.relabel_sequential(seg)
+        adjacency, _ = lab.relabel_sequential(ws.watershed(
+            -(fov_sum * bkg), markers, bkg, 1, cfg.watershed_max_iters))
+        epithelial = _epithelial_area(bkg, fov_sum, cfg)
+    else:
+        seg, n_cells = lab.filter_and_relabel(seg, cfg.lp_cell_min_size)
+        adjacency = torch.zeros_like(seg)
+        epithelial = torch.zeros(seg.shape, dtype=torch.bool,
+                                 device=seg.device)
     return Segmentation2D(
         segmentation=seg,
         n_cells=n_cells,
         registered=registered,
         fov_sum=fov_sum,
         enhanced=enhanced,
-        adjacency=zero_i,
-        epithelial=zero_i.to(torch.bool),
+        adjacency=adjacency,
+        epithelial=epithelial,
     )
 
 
-def _require_multispecies(variant: str) -> None:
-    if variant == "biofilm":
-        raise NotImplementedError(
-            "segment_lpcv: the biofilm variant (log-domain registration, "
-            "adjacency flood, epithelial area) is not ported yet "
-            "(ROADMAP §A.4)")
-    if variant != "multispecies":
+# float32 1/ln(10), the factor of jnp.log10
+_INV_LN10 = 0.4342944920063019
+
+
+def _epithelial_area(bkg_mask: torch.Tensor, fov_sum: torch.Tensor,
+                     cfg: SegmentationConfig) -> torch.Tensor:
+    """The epithelial/debris area: the background's complement without
+    4-connected objects below bkg_min_size, holes filled, closed with a
+    disk; its largest 8-connected object, dilated by the disk, is the main
+    background; the objects outside it seed a flood of -fov_sum over the
+    whole image, and every pixel outside the largest basin is flagged.
+
+    The flood has no mask and stops after watershed_max_iters rounds, as
+    the reference's does: a pixel it has not reached by then keeps label
+    0 and so counts as epithelial. argmax takes the first index on ties,
+    so with no object at all every pixel has label 0 = argmax and none is
+    flagged."""
+    r = cfg.epithelial_disk_radius
+    image_bkg = lab.remove_small_objects(~bkg_mask, cfg.bkg_min_size, 1)
+    image_bkg = morph.binary_fill_holes(image_bkg)
+    closed = morph.binary_closing_disk(image_bkg, r)
+    objs = lab.label(closed, 2, cfg.ccl_max_iters)
+    _, counts = lab._id_counts(objs)
+    counts[0] = 0
+    bkg_final = (objs == torch.argmax(counts)) & closed
+    bkg_dil = morph.binary_dilation_disk(bkg_final, r)
+    fg_objs, _ = lab.relabel_sequential(
+        lab.label(~bkg_dil, 2, cfg.ccl_max_iters))
+    flooded = ws.watershed(-fov_sum, fg_objs, None, 1,
+                           cfg.watershed_max_iters)
+    _, counts2 = lab._id_counts(flooded)
+    counts2[0] = 0
+    return flooded != torch.argmax(counts2)
+
+
+def _is_biofilm(variant: str) -> bool:
+    if variant not in ("multispecies", "biofilm"):
         raise ValueError(f"segment_lpcv: unknown variant {variant!r}")
+    return variant == "biofilm"

@@ -13,31 +13,63 @@ segment_3d_tiled has the summed volume it works in the canonical (X, Z, Y)
 layout, as the reference does: component ids (the minimum linear index),
 their ranks, the KMeans histogram's strided subsample and the union-find's
 smaller root all follow linear order in that layout, so the cell numbering
-and thresholds are the reference's. Where the reference branched inside a
-compiled program or spilled a fixed-size device buffer, the port reads a
-small result back to the host: the stitch shifts once, the boundary pair
-sets (torch.unique per boundary is exact, so the reference's pair cap and
-its full-plane fallback are not needed) and the per-tile presence bitmaps.
+and thresholds are the reference's.
+
+register_volume_stack aligns per-laser (X, Y, Z, C_l) z-stacks on their
+log channel sums; the z-slice front end (segment_zstack_slice,
+measure_biofilm_images_2d_from_zstack_cli) runs the 2D biofilm engine on
+single planes of the registered stack (kernels B1 and B2 on the card).
+
+Where the reference branched inside a compiled program or spilled a
+fixed-size device buffer, the port reads a small result back to the host:
+the stitch shifts once, the boundary pair sets (torch.unique per boundary
+is exact, so the reference's pair cap and its full-plane fallback are not
+needed) and the per-tile presence bitmaps.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from hiprfish_tpu_torch.config import SegmentationConfig
+from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+from hiprfish_tpu_torch.io import images as iio
+from hiprfish_tpu_torch.io import outputs
+from hiprfish_tpu_torch.models import classifier
+from hiprfish_tpu_torch.ops import fp
 from hiprfish_tpu_torch.ops import kmeans as km
 from hiprfish_tpu_torch.ops import labeling as lab
 from hiprfish_tpu_torch.ops import line_profile as lp
 from hiprfish_tpu_torch.ops import morphology as morph
 from hiprfish_tpu_torch.ops import register as reg
+from hiprfish_tpu_torch.ops import regionprops as rp
 from hiprfish_tpu_torch.ops import segstats
 from hiprfish_tpu_torch.ops import watershed as ws
+from hiprfish_tpu_torch.pipeline import biofilm as bf
+from hiprfish_tpu_torch.pipeline import measure as meas
+from hiprfish_tpu_torch.pipeline import segment2d
+from hiprfish_tpu_torch.pipeline.classify import SHAPE_COLUMNS
 
 
 # ---------------------------------------------------------------------------
 # Stitching
 # ---------------------------------------------------------------------------
+
+
+def register_volume_stack(volume_stack):
+    """Register per-laser (X, Y, Z, C_l) volumes to laser 0 by 3D phase
+    correlation of the logs of their channel sums, each shift read to the
+    host once, and concatenate the channels: (X, Y, Z, C), zeros where a
+    shifted laser has no data."""
+    vols = [torch.as_tensor(v) for v in volume_stack]
+    sums = [torch.log(fp.sum_in_order(v, 3) + 1e-8) for v in vols]
+    parts = [vols[0]]
+    for i in range(1, len(vols)):
+        shift = reg.register_translation_3d(sums[0], sums[i])
+        parts.append(reg.apply_shift_3d(vols[i], shift)[0])
+    return torch.cat(parts, dim=3)
 
 
 def stitch_tiles_device(tile_volumes, grid, overlap: int, out_shape,
@@ -387,3 +419,66 @@ def measure_volume_streamed(seg: torch.Tensor, chunk_loader, z_total: int,
         sums += st.sums
         counts += st.counts
     return sums / torch.clamp(counts, min=1.0)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# The z-slice front end of the biofilm 2D engine
+# ---------------------------------------------------------------------------
+
+
+def segment_zstack_slice(image_stack_4d, z: int,
+                         cfg: SegmentationConfig = SegmentationConfig(),
+                         max_cells: int = 4096):
+    """(Segmentation2D, plane): the biofilm LP-CV engine on plane ``z`` of
+    a registered (X, Y, Z, C) stack."""
+    plane = torch.as_tensor(image_stack_4d)[:, :, z, :]
+    return segment2d.segment_lpcv_from_registered(plane, cfg, max_cells,
+                                                  "biofilm"), plane
+
+
+def measure_biofilm_images_2d_from_zstack_cli(
+        sample, clf, taxon_lookup, z_indices, cfg=SegmentationConfig(),
+        max_cells=4096, device=torch.device("cuda")):
+    """Per-z biofilm measurement of a z-stack: load the per-laser stacks
+    '{sample}_<laser>.npy' ((Z, H, W, C_l); a .czi raises, ROADMAP §A.7),
+    register them on ``device`` (the card unless the caller names the
+    CPU), and for each requested z segment the plane and write
+    {sample}_z_{z}_registered.npy, _seg.npy, _adjacency_seg.npy,
+    _cell_information.csv (headerless: features, barcode, sample, label,
+    seven shape columns), _identification.npy and _adjacency_matrix.csv."""
+    device = torch.device(device)
+    volumes = []
+    for laser in SEVEN_BIT.lasers:
+        name = f"{sample}_{laser}.czi"
+        if not os.path.exists(name):
+            name = f"{sample}_{laser}.npy"
+        volumes.append(torch.from_numpy(np.ascontiguousarray(
+            iio.load_image_zstack_fixed_t(name), np.float32)).to(device))
+    stack4d = register_volume_stack(volumes)
+    del volumes
+    for z in z_indices:
+        res, plane = segment_zstack_slice(stack4d, z, cfg, max_cells)
+        n = int(res.n_cells)
+        tag = f"{sample}_z_{z}"
+        seg = res.segmentation.cpu().numpy()
+        np.save(f"{tag}_registered.npy", plane.cpu().numpy())
+        np.save(f"{tag}_seg.npy", seg)
+        np.save(f"{tag}_adjacency_seg.npy", res.adjacency.cpu().numpy())
+        _, avgint_norm = meas.measure_fov(res.segmentation, plane, n,
+                                          max_cells)
+        codes, _, _, feats = classifier.classify(clf, avgint_norm, device)
+        props = rp.shape_props_2d(res.segmentation, max_cells)
+        outputs.write_frame(
+            f"{tag}_cell_information.csv",
+            [(j, feats[:, j]) for j in range(feats.shape[1])]
+            + [("barcode", np.array(codes, dtype=object)),
+               ("sample", np.full(n, sample, dtype=object)),
+               ("label", np.arange(1, n + 1))]
+            + [(k, props[k][1:n + 1].cpu().numpy()) for k in SHAPE_COLUMNS],
+            header=False)
+        np.save(f"{tag}_identification.npy",
+                bf.paint_taxon_identification(seg, codes, taxon_lookup, n))
+        pairs = bf.adjacency_label_pairs(res.adjacency.cpu().numpy())
+        mcodes, mat, _ = bf.adjacency_matrix_from_pairs(pairs, codes,
+                                                        taxon_lookup)
+        bf.save_adjacency_matrix(f"{tag}_adjacency_matrix.csv", mcodes, mat)

@@ -15,10 +15,10 @@ from hiprfish_tpu.io import images as jimages
 from hiprfish_tpu.io import outputs as joutputs
 from hiprfish_tpu.io import tables as jtables
 from hiprfish_tpu_torch import cli
+from hiprfish_tpu_torch.cli import biofilm as cli_biofilm
 from hiprfish_tpu_torch.cli import classify as cli_classify
 from hiprfish_tpu_torch.cli import classify_spectra as cli_classify_spectra
 from hiprfish_tpu_torch.io import images, outputs, tables
-from hiprfish_tpu_torch.pipeline import segment2d
 
 torch.set_num_threads(1)
 
@@ -166,8 +166,10 @@ def test_unported_inputs_raise(tmp_path, monkeypatch):
         images.load_image("fov_405.czi")
     with pytest.raises(ValueError):
         images.load_image("fov_405.png")
-    with pytest.raises(NotImplementedError, match="§A.4"):
-        segment2d.segment_lpcv([torch.zeros(8, 8, 2)], variant="biofilm")
+    with pytest.raises(NotImplementedError, match="§A.5"):
+        cli_biofilm.main([str(tmp_path), "-d", "3", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        images.load_image_zstack_fixed_t(str(tmp_path / "stack_488.czi"))
     monkeypatch.chdir(tmp_path)
     (tmp_path / "clf_umap_transform.pkl").write_bytes(b"")
     (tmp_path / "clf_umap_transform_biofilm_7b.pkl").write_bytes(b"")

@@ -1,8 +1,8 @@
 """The port never imports jax nor the JAX package: import every module of
 it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
-and measurement; the four command lines) in a subprocess where any
-``import jax`` or ``import hiprfish_tpu`` raises (sys.modules[...] =
-None). The command lines run with pandas, matplotlib and imageio blocked
+and measurement; the command lines, biofilm -d 2 and -z among them) in a
+subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
+(sys.modules[...] = None). The command lines run with pandas, matplotlib and imageio blocked
 too, which the GPU machine does not have."""
 
 import os
@@ -121,6 +121,45 @@ print("cells", len(open("ten_enc_5_cell_ids.txt").read().split()),
 """
 
 
+SCRIPT_BIOFILM = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import os
+import numpy as np
+from hiprfish_tpu_torch.config import SEVEN_BIT
+from hiprfish_tpu_torch.utils import synthetic
+from hiprfish_tpu_torch.cli import biofilm
+codes = [1, 9, 65, 127, 34, 88]
+os.chdir(sys.argv[2])
+with open("probes.csv", "w") as f:
+    f.write("target_taxon,code\n")
+    f.writelines(f"{100 + i},{SEVEN_BIT.code_str(c)}\n"
+                 for i, c in enumerate(codes))
+os.makedirs("fov")
+os.makedirs("zstack")
+fov = synthetic.make_fov(SEVEN_BIT, codes, shape=(192, 192), seed=5,
+                         cell_axes=(7.0, 12.0))
+for laser, plane in zip(SEVEN_BIT.lasers, fov["stack"]):
+    np.save(f"fov/s_{laser}.npy", plane)
+    np.save(f"zstack/z_{laser}.npy", np.stack([0.8 * plane, plane]))
+flags = ["-p", "probes.csv", "-r", sys.argv[1], "--max_cells", "64",
+         "--device", "cpu"]
+biofilm.main(["fov", *flags, "-d", "2"])
+biofilm.main(["zstack", *flags, "-z", "1"])
+for name in ("fov/s_seg.npy", "fov/s_adjacency_matrix.csv",
+             "fov/s_identification.png", "fov/taxon_color_lookup.csv",
+             "zstack/z_z_1_seg.npy", "zstack/z_z_1_cell_information.csv"):
+    assert os.path.getsize(name) > 0, name
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+print("cells", len(open("fov/s_cell_information.csv").read().splitlines()) - 1,
+      len(open("zstack/z_z_1_cell_information.csv").read().splitlines()))
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -146,3 +185,9 @@ def test_port_clis_run_without_jax_pandas_matplotlib(tmp_path):
     out = _run(SCRIPT_CLI, "torch_port_clf_10b_1023x200.npz", str(tmp_path))
     n_ten, n_seven = (int(v) for v in out)
     assert n_ten == 9 and n_seven == 6
+
+
+def test_port_biofilm_cli_runs_without_jax_pandas_matplotlib(tmp_path):
+    out = _run(SCRIPT_BIOFILM, "torch_port_clf_7b_127x50.npz", str(tmp_path))
+    n_fov, n_slice = (int(v) for v in out)
+    assert n_fov == n_slice == 6
