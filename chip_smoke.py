@@ -115,7 +115,30 @@ non-zero and prints no result:
      of the FOV (per-z weights 0.7, 1.0, 1.0, 0.7, fresh noise per z,
      lasers 2-4 shifted in x, y and z): per slice the bar of (b) but the
      count, and B1 and B2 launched once per slice. Z = 4 (of a real
-     stack's tens of slices) is the only cut, for the time limit.
+     stack's tens of slices) is the only cut, for the time limit;
+ 16. the volumetric biofilm analysis (the untiled 3D engine: B6, B3, B4):
+     (a) segment_3d on the 96 x 64 x 32 volume of phase 7's helper with
+     lasers 2-4 rolled, on the CPU (plain versions) and on the card, both
+     in bf16 LP-CV mode: equal n_cells and registration shifts, label
+     agreement >= 0.9999, B6, B3 and B4 launched on the card; (b) B6 on
+     one microscope tile's normalised channel sum (1040 x 170 x 550
+     (X, Z, Y), bf16), B3 counts with 32768 segments and B4 with a
+     32768-entry table over the tile's 97.24 M labels, each against its
+     plain twin (B3 and B4 bitwise, B6 within TOL) with bound and library
+     call; (c) cli.biofilm -d 3 at its default flags on one tile of the
+     flagship volume cut to Z = 110 (VolumeSpec((1040, 550, 110),
+     (36, 36, 52), seed 5), 840 planted cells, 127 codes; the cut keeps
+     the stacks and artifacts within the machine's 45 GiB of disk writes),
+     written as four (110, 1040, 550, C_l) float32 .npy stacks with lasers
+     2-4 rolled in x, y and z: the shifts found undo the rolls, B6, B3 and
+     B4 launch, barcode accuracy >= 0.99 over the matched cells from the
+     artifacts, every planted cell of a code whose summed spectrum is at
+     least DIM_SPECTRUM x the median found (one label covers half its
+     voxels), the bvox
+     header, CSV rows and identification shape right, peak device memory
+     below 60 GiB, and a second segment_3d_from_sum of the written channel
+     sum gives the same labels; print the stages' seconds, the bytes
+     written and the peak.
 
 At the end the card's line is printed again, then a JSON object with one
 entry per kernel (its launches on each path, errors, times, bound and
@@ -217,11 +240,34 @@ BIOFILM_CELLS_2000 = 395
 ZSTACK_WEIGHTS = (0.7, 1.0, 1.0, 0.7)
 ZSTACK_SHIFTS = ((0, 0, 0), (3, -2, 1), (-2, 4, 0), (1, 1, -1))
 ZSTACK_SLICES = (1, 2)
+# phase 16: the kernels of the volumetric analysis; one microscope tile of
+# the 3D volume (tools/bench3d.py:137-138 cuts it into 2 x 4 tiles of
+# (1040, 550, 170)), the shape of 16b; 16c's tile, cut to Z = 110 (two of
+# its three cell layers: 840 of 1,260 planted cells): the machine takes
+# at most 45 GiB of disk writes per call, and the full tile's stacks and
+# artifacts are 48 GiB; the rolls of lasers 1-3 of 16a and 16c (x, y, z;
+# laser 0 stays), which the registration must undo; the seed filter's
+# segments; the peak device memory 16c must stay below
+PATH_BIOFILM_3D = ("label_stats", "label_lookup", "lpcv3d")
+TILE_SHAPE = (1040, 550, 170)
+TILE_SHAPE_CLI = (1040, 550, 110)
+VOLUME_ROLLS = ((0, 0, 0), (3, -2, 1), (-2, 4, 0), (1, 1, -1))
+SEED_SEGMENTS = 32768
+TILE_PEAK_GIB = 60.0
+# 16c's stacks add uniform noise to each of the 63 channels, so the
+# channel sum's background is ~0.95; codes 8, 16 and 24 sum their spectra
+# to 2.4-4.0 (the median code 27.4), and the untiled engine's log10
+# KMeans background mask leaves their cells out, in the JAX package as in
+# the port (ROADMAP §C). 16c must find every planted cell of a code whose
+# summed spectrum is at least DIM_SPECTRUM x the median
+DIM_SPECTRUM = 0.2
 # the order of the kernels line: B3 once per column set, B4 once per shape
 REPORT_ORDER = ("nlm", "lpcv2d", "label_stats[counts]", "label_stats[aux41]",
                 "label_stats[cube7b]", "label_stats[cols10b]",
-                "label_stats[tile3d]", "label_lookup[2000^2]",
-                "label_lookup[tile3d]", "stats_cm", "lpcv3d")
+                "label_stats[tile3d]", "label_stats[volume3d]",
+                "label_lookup[2000^2]", "label_lookup[tile3d]",
+                "label_lookup[volume3d]", "stats_cm", "lpcv3d",
+                "lpcv3d[tile]")
 # the 10-bit step's erosion-depth histogram has max_erosion_iters + 1
 # classes
 AUX_CLASSES_10B = 41
@@ -1110,6 +1156,226 @@ def _biofilm_phase(torch, kernels, fixture_7b: str, dev) -> dict:
     return out
 
 
+def _volume_cpu_vs_card(torch, kernels, dev) -> dict:
+    """Phase 16a: segment_3d on the 96 x 64 x 32 volume of _volume_stack
+    with lasers 1-3 rolled by VOLUME_ROLLS, on the CPU (plain versions) and
+    on ``dev`` (B6, B3, B4), both in bf16 LP-CV mode."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.pipeline import segment3d
+
+    cube = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64], (96, 64, 32))
+    blocks = [np.ascontiguousarray(np.roll(cube[..., lo:hi], r, (0, 1, 2)))
+              for (lo, hi), r in zip(SEVEN_BIT.blocks, VOLUME_ROLLS)]
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        shifts = []
+        kernels.reset_launches()
+        seg, n, _, _ = segment3d.segment_3d(
+            [torch.from_numpy(b) for b in blocks], SegmentationConfig(), 64,
+            bf16=True, device=d, shifts=shifts)
+        _sync(torch, d)
+        out[d.type] = (seg.cpu(), n, shifts, kernels.launch_counts())
+    (seg_c, n_c, sh_c, _), (seg_g, n_g, sh_g, launches) = out["cpu"], \
+        out["cuda"]
+    agree = float((seg_c == seg_g).float().mean())
+    print(f"phase 16a 96x64x32 segment_3d cpu vs gpu: n_cells {n_c} / {n_g}, "
+          f"agreement {agree:.6f}, shifts {sh_c} / {sh_g}; launches on the "
+          f"card {launches}")
+    if n_c != n_g or agree < 0.9999 or sh_c != sh_g:
+        raise AssertionError("96x64x32 segment_3d: the card disagrees with "
+                             "the CPU")
+    missing = [k for k in PATH_BIOFILM_3D if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by segment_3d: "
+                             f"{missing}")
+    return {"n_cells": [n_c, n_g], "agreement": agree, "shifts": sh_c,
+            "launches": launches}
+
+
+def _planted_found(torch, s3, spec, n_codes: int, seg_xzy, n_found: int):
+    """(num planted cells,) bool: does one found label cover at least half
+    of the planted cell's voxels."""
+    m = n_found + 1
+    counts = torch.zeros((spec.n_cells + 1) * m, dtype=torch.int64,
+                         device=seg_xzy.device)
+    for z0 in range(0, spec.shape[2], 10):
+        zc = min(10, spec.shape[2] - z0)
+        truth = s3.truth_chunk(spec, n_codes, z0, zc, seg_xzy.device)[0]
+        seg = seg_xzy[:, z0:z0 + zc, :].permute(0, 2, 1).to(torch.int64)
+        counts += torch.bincount((truth.to(torch.int64) * m + seg)
+                                 .reshape(-1), minlength=counts.numel())
+    counts = counts.reshape(spec.n_cells + 1, m)[1:].cpu().numpy()
+    return counts[:, 1:].max(axis=1) * 2 >= counts.sum(axis=1)
+
+
+def _fill_tile_stacks(torch, spec, lut_dev, outs) -> None:
+    """Fill the per-laser (Z, X, Y, C_l) float32 arrays ``outs`` (in
+    memory or memory-mapped) with the 63-channel volume of ``spec``, made
+    on the card a few z-planes at a time (synthetic3d.channel_chunk_cm,
+    seed 1), laser l rolled by VOLUME_ROLLS[l] in (x, y, z)."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    z = spec.shape[2]
+    zc = 4
+    for z0 in range(0, z, zc):
+        n = min(zc, z - z0)
+        slab = s3.channel_chunk_cm(spec, lut_dev.shape[0], z0, n, lut_dev,
+                                   1).permute(1, 2, 3, 0)
+        for out, (lo, hi), (rx, ry, rz) in zip(outs, SEVEN_BIT.blocks,
+                                               VOLUME_ROLLS):
+            out[(np.arange(z0, z0 + n) + rz) % z] = torch.roll(
+                slab[..., lo:hi], (rx, ry), (1, 2)).cpu().numpy()
+
+
+def _write_tile_stacks(torch, spec, lut_dev, folder: str) -> int:
+    """The tile's stacks (_fill_tile_stacks) as '{folder}/tile_<laser>.npy',
+    streamed to memory-mapped files. Returns the bytes written."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT
+
+    x, y, z = spec.shape
+    outs = [np.lib.format.open_memmap(
+        f"{folder}/tile_{laser}.npy", mode="w+", dtype=np.float32,
+        shape=(z, x, y, hi - lo))
+        for laser, (lo, hi) in zip(LASERS_7B, SEVEN_BIT.blocks)]
+    _fill_tile_stacks(torch, spec, lut_dev, outs)
+    nbytes = 0
+    for out in outs:
+        out.flush()
+        nbytes += out.nbytes
+    del outs
+    return nbytes
+
+
+def _volume_cli_phase(torch, kernels, fixture_7b: str, dev,
+                      lut_dev) -> dict:
+    """Phase 16c: cli.biofilm -d 3 on one microscope tile of the 3D volume,
+    in a temporary directory that is removed afterwards."""
+    from hiprfish_tpu_torch.cli import biofilm as cli_biofilm
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.pipeline import segment3d
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    spec = s3.VolumeSpec(shape=TILE_SHAPE_CLI, spacing=(36, 36, 52),
+                         seed=5)
+    codebook = list(load_classifier(fixture_7b).codebook)
+    n_codes = lut_dev.shape[0]
+    lut_class = np.array([codebook.index(SEVEN_BIT.code_str(c + 1))
+                          for c in range(n_codes)])
+    x, y, z = TILE_SHAPE_CLI
+    cwd = os.getcwd()
+    measure = segment3d.measure_biofilm_images_3d
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            free = os.statvfs(".")
+            print(f"phase 16c scratch: "
+                  f"{free.f_bavail * free.f_frsize / 1e9:.1f} GB free")
+            _write_probe_design("probes.csv", codebook)
+            os.mkdir("tile")
+            t0 = time.time()
+            in_bytes = _write_tile_stacks(torch, spec, lut_dev, "tile")
+            build_s = time.time() - t0
+            inputs = set(os.listdir("tile"))
+            stages, shifts = {}, []
+            segment3d.measure_biofilm_images_3d = (
+                lambda *a, **kw: measure(*a, timings=stages, shifts=shifts,
+                                         **kw))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.time()
+            cli_biofilm.main(["tile", "-p", "probes.csv", "-r", fixture_7b,
+                              "-d", "3"])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            segment3d.measure_biofilm_images_3d = measure
+            written = {n: os.path.getsize(f"tile/{n}")
+                       for n in os.listdir("tile") if n not in inputs}
+            seg = np.load("tile/tile_seg.npy")
+            codes, _, types = _biofilm_table("tile/tile")
+            n_found = len(codes) - 1
+            head = np.fromfile("tile/tile_raw_image.bvox", "<i4", 4).tolist()
+            ident_shape = np.load("tile/tile_identification.npy",
+                                  mmap_mode="r").shape
+            pred = np.array([0] + [codebook.index(c) for c in codes[1:]])
+            seg_xzy = torch.from_numpy(seg).to(dev).permute(0, 2, 1)
+            correct, matched = _accuracy_3d(torch, s3, spec, n_codes, seg_xzy,
+                                            pred, lut_class, n_found,
+                                            n_found + 1)
+            found = _planted_found(torch, s3, spec, n_codes, seg_xzy,
+                                   n_found)
+            del seg_xzy
+            acc = correct / max(matched, 1)
+            # the same channel sum (the raw-image volume, Fortran order)
+            # through the engine again, in memory
+            raw = np.fromfile("tile/tile_raw_image.bvox", "<f4",
+                              offset=16).reshape(z, y, x).transpose(2, 1, 0)
+            t0 = time.time()
+            seg2, n2, _ = segment3d.segment_3d_from_sum(
+                [torch.from_numpy(np.ascontiguousarray(raw)).to(dev)],
+                SegmentationConfig(), 4096)
+            torch.cuda.synchronize()
+            again_s = time.time() - t0
+            same = n2 == n_found and np.array_equal(seg2.cpu().numpy(), seg)
+            del seg2, raw
+        finally:
+            segment3d.measure_biofilm_images_3d = measure
+            os.chdir(cwd)
+    want = [tuple(-v for v in r) for r in VOLUME_ROLLS]
+    spectrum = lut_dev.sum(dim=1).cpu().numpy()
+    node_code = s3.node_codes(spec, n_codes)
+    dim = spectrum[node_code] < DIM_SPECTRUM * np.median(spectrum)
+    missed = sorted({int(c) + 1 for c in node_code[~found]})
+    print(f"phase 16c cli.biofilm -d 3 on {TILE_SHAPE_CLI}: n_cells "
+          f"{n_found} (planted {spec.n_cells}), matched {matched}, accuracy "
+          f"{acc:.4f} ({correct}/{matched}) from the artifacts; planted "
+          f"cells found {int(found.sum())}, of the {int((~dim).sum())} with "
+          f"a summed spectrum >= {DIM_SPECTRUM} x the median "
+          f"{int(found[~dim].sum())}, codes of the missed cells {missed}; "
+          f"debris "
+          f"{types.count('debris')}; shifts {shifts} (want {want}); "
+          f"{wall:.2f} s, stages (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; stacks {in_bytes / 1e9:.2f} GB written in {build_s:.1f} s; "
+          f"artifacts {sum(written.values()) / 1e9:.2f} GB {written}; peak "
+          f"{peak:.2f} GiB; launches {launches}; bvox header {head}, "
+          f"identification {ident_shape}; repeat segment_3d_from_sum "
+          f"{again_s:.2f} s, same labels and n_cells {same}")
+    if shifts != want:
+        raise AssertionError(f"cli.biofilm -d 3: shifts {shifts}, planted "
+                             f"{want}")
+    missing = [k for k in PATH_BIOFILM_3D if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by cli.biofilm -d 3: "
+                             f"{missing}")
+    if acc < 0.99 or not found[~dim].all():
+        raise AssertionError(f"cli.biofilm -d 3: {correct}/{matched} matched "
+                             f"correct, {int(found[~dim].sum())} of the "
+                             f"{int((~dim).sum())} bright planted cells "
+                             f"found; expected >= 0.99 and all")
+    if (head != [x, y, z, 1] or seg.max() != n_found
+            or ident_shape != (x, y, z, 3)):
+        raise AssertionError("cli.biofilm -d 3: artifacts malformed")
+    if peak >= TILE_PEAK_GIB:
+        raise AssertionError(f"cli.biofilm -d 3: peak {peak:.2f} GiB")
+    if not same:
+        raise AssertionError("cli.biofilm -d 3: a second segment_3d_from_sum "
+                             "of the channel sum gave other labels")
+    return {"n_cells": n_found, "matched": matched, "accuracy": acc,
+            "planted": spec.n_cells, "found": int(found.sum()),
+            "bright": int((~dim).sum()), "bright_found":
+            int(found[~dim].sum()), "missed_codes": missed,
+            "debris": types.count("debris"), "shifts": shifts,
+            "seconds": wall, "stages": stages, "stacks_bytes": in_bytes,
+            "stacks_seconds": build_s, "artifact_bytes": written,
+            "peak_gib": peak, "launches": launches,
+            "repeat_seconds": again_s}
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1681,6 +1947,68 @@ def main() -> int:
     torch.cuda.empty_cache()
     bio = _biofilm_phase(torch, kernels, FIXTURE, dev)
 
+    # 16. the volumetric analysis (the untiled 3D engine): (a) CPU vs card
+    torch.cuda.empty_cache()
+    vol_a = _volume_cpu_vs_card(torch, kernels, dev)
+    # (b) B6, B3 and B4 at the shapes one microscope tile gives them
+    tspec = s3.VolumeSpec(shape=TILE_SHAPE, spacing=(36, 36, 52), seed=5)
+    tx3, ty3, tz3 = TILE_SHAPE
+    lut_dev = torch.from_numpy(lut.astype(np.float32)).to(dev)
+    tsum = s3.build_sum_volume(tspec, len(codes3), lut_dev.sum(dim=1).cpu(),
+                               seed=1, z_chunk=16, device=dev)
+    tile_xzy = (tsum / tsum.max()).permute(0, 2, 1).contiguous()
+    del tsum
+    out_k = kernels.lpcv3d(tile_xzy, True)
+    out_p, plain_tile_ms = _time_once(
+        torch, lambda: line_profile.lp_cv_enhance_3d_plain(
+            tile_xzy, bf16=True, layout="xzy"))
+    err_tile, ok_tile = _agree(torch, "lpcv3d", out_k, out_p)
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    ms_tile = _time_ms(torch, lambda: kernels.lpcv3d(tile_xzy, True), 5)
+    yard, text = yardsticks(ms_tile, kernel_work(
+        "lpcv3d", voxels=tile_xzy.numel()), None, 0)
+    print(f"phase 16b lpcv3d on the tile's {tuple(tile_xzy.shape)} (X, Z, Y) "
+          f"sum: max_abs_err {err_tile:.3e} ({TOL_TEXT['lpcv3d']}) kernel "
+          f"{ms_tile:.3f} ms plain {plain_tile_ms:.3f} ms (one call) {text} "
+          f"{'ok' if ok_tile else 'FAIL'}")
+    if not ok_tile:
+        raise AssertionError("lpcv3d: kernel disagrees with plain on the "
+                             "tile")
+    report["lpcv3d[tile]"] = {"max_abs_err": err_tile, "ms": ms_tile,
+                              "plain_ms": plain_tile_ms, **yard,
+                              "shape": list(tile_xzy.shape)}
+    del tile_xzy
+    # the seed filter's counts (32768 segments) and keep-table lookup over
+    # the tile's (X, Y, Z) labels, here its planted cells ranked 1..
+    vlab = torch.cat([s3.truth_chunk(tspec, len(codes3), z0,
+                                     min(10, tz3 - z0), dev)[0]
+                      for z0 in range(0, tz3, 10)], dim=2)
+    vlab = torch.unique(vlab, return_inverse=True)[1].to(torch.int32)
+    vflat = vlab.reshape(-1)
+    n_vox = int((vflat > 0).sum())
+    print(f"phase 16b tile labels {tuple(vlab.shape)}: {int(vflat.max())} "
+          f"cells, {n_vox} labelled voxels")
+    check_b3("volume3d", (vflat, None, None, None, SEED_SEGMENTS, 0, False,
+                          tx3, vflat.numel() // tx3), 10, 3,
+             kernel_work("label_stats", pixels=vflat.numel(),
+                         labelled=n_vox, ncols=2, row_bytes=0,
+                         segments=SEED_SEGMENTS),
+             lambda: torch.bincount(vflat, minlength=SEED_SEGMENTS),
+             phase="16b")
+    vtbl = torch.rand(SEED_SEGMENTS, generator=gen).to(dev)
+    vtbl0 = vtbl.clone()
+    vtbl0[0] = 0.0
+    check("label_lookup[volume3d]", lambda: kernels.label_lookup(vlab, vtbl),
+          lambda: segstats.label_lookup_plain(vlab, vtbl), 10, 3,
+          kernel_work("label_lookup", pixels=vflat.numel(),
+                      segments=SEED_SEGMENTS),
+          lambda: torch.index_select(vtbl0, 0, vflat), phase="16b")
+    del vlab, vflat, vtbl, vtbl0
+    torch.cuda.empty_cache()
+    # (c) cli.biofilm -d 3 on the tile
+    vol_c = _volume_cli_phase(torch, kernels, FIXTURE, dev, lut_dev)
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -1692,7 +2020,8 @@ def main() -> int:
                "cli.biofilm -d 2": (
                    bio["cli.biofilm -d 2"]["cold"]["launches"], PATH_BIOFILM),
                "cli.biofilm -z": (bio["cli.biofilm -z"]["launches"],
-                                  PATH_BIOFILM)}
+                                  PATH_BIOFILM),
+               "cli.biofilm -d 3": (vol_c["launches"], PATH_BIOFILM_3D)}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -1707,7 +2036,9 @@ def main() -> int:
     # above them in a long output)
     print(_card_line())
     print(json.dumps({"kernels": entries, "domains": domains,
-                      "clis": clis, "biofilm": bio}))
+                      "clis": clis, "biofilm": bio,
+                      "volume": {"cpu vs card": vol_a,
+                                 "cli.biofilm -d 3": vol_c}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,11 +2,11 @@
 flags, plus --device): positional input folder; -p probe-design CSV; -r
 classifier path (.npz, or the .pkl name it stands for); -d 2 for the 2D
 analysis of each FOV; -z <z ...> for the z-slice analysis of each z-stack;
--sf T when the folder holds one subfolder per dataset; --max_cells.
+otherwise (-d 3) the volumetric analysis of each z-stack; -sf T when the
+folder holds one subfolder per dataset; --max_cells.
 
 Each sample is the name of a set of per-laser files '<sample>_<laser>.npy'
-in the folder ('.czi' inputs raise: ROADMAP §A.7). The volumetric analysis
-(-d 3 without -z) is not ported yet (ROADMAP §A.5) and raises.
+in the folder ('.czi' inputs raise: ROADMAP §A.7).
 """
 
 from __future__ import annotations
@@ -49,10 +49,6 @@ def main(argv=None):
     parser.add_argument("--max_cells", type=int, default=4096)
     add_device_flag(parser)
     args = parser.parse_args(argv)
-    if args.d != 2 and args.z is None:
-        raise NotImplementedError(
-            "cli.biofilm: the volumetric analysis (-d 3 without -z) is not "
-            "ported yet (ROADMAP §A.5)")
     device = resolve_device(args.device)
 
     taxon_lookup = biofilm.make_taxon_lookup(
@@ -71,9 +67,13 @@ def main(argv=None):
                 biofilm.measure_biofilm_images_2d(
                     s, clf, taxon_lookup, max_cells=args.max_cells,
                     device=device)
-            else:
+            elif args.z is not None:
                 segment3d.measure_biofilm_images_2d_from_zstack_cli(
                     s, clf, taxon_lookup, args.z, max_cells=args.max_cells,
+                    device=device)
+            else:
+                segment3d.measure_biofilm_images_3d(
+                    s, clf, taxon_lookup, max_cells=args.max_cells,
                     device=device)
 
 

@@ -13,6 +13,8 @@ Per FOV:
   biofilm: the cell tables, adjacency matrices and taxon colour lookup
            (write_frame: named, typed columns with an optional index),
            and the identification renders (write_png of the RGB image)
+  volumes: Blender voxel files (save_bvox, save_identification_bvox) and
+           large .npy arrays streamed from a tensor (save_npy)
 
 The CSV writers give the bytes pandas' ``to_csv`` gives: each float cell
 as numpy's shortest repr of its dtype (``str(np.float32(v))``), NaN as an
@@ -215,3 +217,40 @@ def save_cell_ids(path: str, barcodes) -> None:
     with open(path, "w") as f:
         for b in barcodes:
             f.write(str(b) + "\n")
+
+
+def save_bvox(volume: np.ndarray, path: str) -> None:
+    """Blender voxel file: a little-endian int32 header (nx, ny, nz, 1)
+    and the volume as little-endian float32 in Fortran order."""
+    vol = np.asarray(volume)
+    header = np.array([vol.shape[0], vol.shape[1], vol.shape[2], 1],
+                      dtype="<i4")
+    with open(path, "wb") as f:
+        header.tofile(f)
+        vol.flatten("F").astype("<f4").tofile(f)
+
+
+def save_identification_bvox(image_identification: np.ndarray,
+                             sample: str) -> None:
+    """{sample}_identification_{r,g,b}.bvox: one volume per colour
+    channel of an (X, Y, Z, 3) identification image."""
+    for i, c in enumerate("rgb"):
+        save_bvox(image_identification[..., i],
+                  "{}_identification_{}.bvox".format(sample, c))
+
+
+def save_npy(path: str, tensor, rows: int = 1 << 27) -> None:
+    """np.save of a tensor on any device, copied to the host about
+    ``rows`` elements at a time along its first axis into a memory-mapped
+    .npy (the same bytes as np.save): a volume on the card never needs a
+    whole host copy."""
+    import torch
+
+    out = np.lib.format.open_memmap(
+        path, mode="w+", shape=tuple(tensor.shape),
+        dtype=torch.empty((), dtype=tensor.dtype).numpy().dtype)
+    per = max(1, rows // max(1, tensor[:1].numel()))
+    for lo in range(0, tensor.shape[0], per):
+        out[lo:lo + per] = tensor[lo:lo + per].cpu().numpy()
+    out.flush()
+    del out

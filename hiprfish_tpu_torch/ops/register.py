@@ -45,6 +45,28 @@ def apply_shift_2d(image: torch.Tensor, shift):
     return rolled * valid.to(rolled.dtype), mask
 
 
+def shift_into(out: torch.Tensor, volume: torch.Tensor, shift) -> torch.Tensor:
+    """Write ``volume`` shifted by integer ``shift`` (one entry per leading
+    axis) into ``out`` of the same shape: out[p] = volume[p - shift] where
+    p - shift lies inside the volume, 0 elsewhere (torch.roll times the
+    overlap mask, without either full-size temporary). ``out`` may be a
+    strided view, such as a channel slice of a larger cube; ``volume`` is
+    copied from in its own layout. Returns ``out``."""
+    src, dst = [], []
+    for ax, o in enumerate(int(v) for v in shift):
+        n = volume.shape[ax]
+        if abs(o) >= n:
+            return out.zero_()
+        idx = [slice(None)] * out.ndim
+        # the planes the shift leaves without data
+        idx[ax] = slice(0, o) if o >= 0 else slice(n + o, n)
+        out[tuple(idx)] = 0
+        dst.append(slice(max(o, 0), n + min(o, 0)))
+        src.append(slice(max(-o, 0), n - max(o, 0)))
+    out[tuple(dst)] = volume[tuple(src)]
+    return out
+
+
 def apply_shift_3d(volume: torch.Tensor, shift):
     """Shift an (X, Y, Z, ...) volume by integer (x, y, z) and return
     (shifted, valid_mask (X, Y, Z)): zeros outside the overlap, in the
@@ -52,17 +74,14 @@ def apply_shift_3d(volume: torch.Tensor, shift):
     apply_shift_2d."""
     sx, sy, sz = (int(v) for v in torch.as_tensor(shift).tolist())
     x, y, z = volume.shape[0], volume.shape[1], volume.shape[2]
+    out = shift_into(torch.empty_like(volume), volume, (sx, sy, sz))
     dev = volume.device
-    rolled = torch.roll(volume, shifts=(sx, sy, sz), dims=(0, 1, 2))
     xi = torch.arange(x, device=dev)[:, None, None]
     yi = torch.arange(y, device=dev)[None, :, None]
     zi = torch.arange(z, device=dev)[None, None, :]
-    valid = ((xi - sx >= 0) & (xi - sx < x) & (yi - sy >= 0) & (yi - sy < y)
-             & (zi - sz >= 0) & (zi - sz < z))
-    mask = valid
-    if volume.ndim > 3:
-        valid = valid.reshape(valid.shape + (1,) * (volume.ndim - 3))
-    return rolled * valid.to(rolled.dtype), mask
+    mask = ((xi - sx >= 0) & (xi - sx < x) & (yi - sy >= 0) & (yi - sy < y)
+            & (zi - sz >= 0) & (zi - sz < z))
+    return out, mask
 
 
 def clamp_shift(shift: torch.Tensor, max_shift: float,

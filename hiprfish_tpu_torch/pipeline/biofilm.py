@@ -167,6 +167,23 @@ def load_planes(sample: str) -> list:
     return planes
 
 
+def stage_timer(timings, device):
+    """lap(name): add the seconds since the previous lap (or since this
+    call) to ``timings[name]``, after synchronising the card when
+    ``device`` is CUDA; with ``timings`` None it does nothing."""
+    stamp = [time.time()]
+
+    def lap(name):
+        if timings is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.time()
+            timings[name] = timings.get(name, 0.0) + now - stamp[0]
+            stamp[0] = now
+
+    return lap
+
+
 def _feature_columns(feats: np.ndarray, nch: int):
     return ([(f"channel_{i}", feats[:, i]) for i in range(nch)]
             + [(f"intensity_classification_{i}", feats[:, nch + i])
@@ -187,16 +204,7 @@ def measure_biofilm_images_2d(sample: str, clf, taxon_lookup: TaxonLookup,
     §A.7). The arrays go to ``device`` (the card unless the caller names
     the CPU). ``timings``, a dict, receives each stage's seconds."""
     device = torch.device(device)
-    stamp = [time.time()]
-
-    def lap(name):
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.time()
-            timings[name] = timings.get(name, 0.0) + now - stamp[0]
-            stamp[0] = now
-
+    lap = stage_timer(timings, device)
     if image_stack is None:
         image_stack = load_planes(sample)
     stack = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))

@@ -1,30 +1,42 @@
-"""The 3D biofilm volume path in PyTorch (port of the tiled engine of
+"""The 3D biofilm paths in PyTorch (port of
 hiprfish_tpu/pipeline/segment3d.py).
 
-stitch_tiles_device -> segment_3d_tiled (3D LP-CV, kernel B6 -> global
-KMeans thresholds -> global seed mask -> margin-tiled CCL + rank + seed
-size filter (B3, B4) + watershed -> host union-find over the tile
-boundaries -> remap (B4)) -> measure_volume_streamed / make_fused_measure
-(per-cell spectra streamed over z-slabs, B5 for channels-major slabs, B3
-otherwise). Classification is pipeline/fused.classify_device.
+The tiled volume engine: stitch_tiles_device -> segment_3d_tiled (3D
+LP-CV, kernel B6 -> global KMeans thresholds -> global seed mask ->
+margin-tiled CCL + rank + seed size filter (B3, B4) + watershed -> host
+union-find over the tile boundaries -> remap (B4)) ->
+measure_volume_streamed / make_fused_measure (per-cell spectra streamed
+over z-slabs, B5 for channels-major slabs, B3 otherwise). Classification
+is pipeline/fused.classify_device. From the moment segment_3d_tiled has
+the summed volume it works in the canonical (X, Z, Y) layout, as the
+reference does: component ids (the minimum linear index), their ranks,
+the KMeans histogram's strided subsample and the union-find's smaller root
+all follow linear order in that layout, so the cell numbering and
+thresholds are the reference's.
 
-Everything runs eagerly on the device of its inputs. From the moment
-segment_3d_tiled has the summed volume it works in the canonical (X, Z, Y)
-layout, as the reference does: component ids (the minimum linear index),
-their ranks, the KMeans histogram's strided subsample and the union-find's
-smaller root all follow linear order in that layout, so the cell numbering
-and thresholds are the reference's.
+The untiled engine of one z-stack (cli.biofilm -d 3):
+measure_biofilm_images_3d reads the per-laser stacks, register_volume_stack
+aligns them on their log channel sums into one (X, Y, Z, C) cube,
+segment_3d_from_sum segments the channel sum as one volume (3D LP-CV, B6;
+KMeans masks; opening; the seed size filter remove_small_objects_fast, B3
+and B4; fill-holes; CCL + rank; watershed), and the cells' mean spectra,
+calls, 3D shape columns, identification image and Blender volumes are
+written. This engine works in (X, Y, Z): its component ids, ranks and
+KMeans subsample follow linear order there, as the reference's do.
 
-register_volume_stack aligns per-laser (X, Y, Z, C_l) z-stacks on their
-log channel sums; the z-slice front end (segment_zstack_slice,
+The z-slice front end (segment_zstack_slice,
 measure_biofilm_images_2d_from_zstack_cli) runs the 2D biofilm engine on
-single planes of the registered stack (kernels B1 and B2 on the card).
+single planes of the registered stack (kernels B1 and B2 on the card);
+register_tstack_average and the host stitch_tiles are the reference's
+time-series average and numpy tile stitcher.
 
-Where the reference branched inside a compiled program or spilled a
-fixed-size device buffer, the port reads a small result back to the host:
-the stitch shifts once, the boundary pair sets (torch.unique per boundary
-is exact, so the reference's pair cap and its full-plane fallback are not
-needed) and the per-tile presence bitmaps.
+Everything runs eagerly on the device of its inputs. Where the reference
+branched inside a compiled program or spilled a fixed-size device buffer,
+the port reads a small result back to the host: the registration and
+stitch shifts once, the seed filter's component count, the boundary pair
+sets (torch.unique per boundary is exact, so the reference's pair cap and
+its full-plane fallback are not needed) and the per-tile presence
+bitmaps.
 """
 
 from __future__ import annotations
@@ -58,18 +70,113 @@ from hiprfish_tpu_torch.pipeline.classify import SHAPE_COLUMNS
 # ---------------------------------------------------------------------------
 
 
-def register_volume_stack(volume_stack):
+def _on(volume, device) -> torch.Tensor:
+    """``volume`` (an array or tensor) as a tensor on ``device``, copied
+    across in its own memory order: a z-stack read as (X, Y, Z, C) is a
+    view of a (Z, X, Y, C) array, and the copy keeps it so."""
+    t = torch.as_tensor(volume)
+    if device is None or t.device == torch.device(device):
+        return t
+    order = sorted(range(t.ndim), key=t.stride, reverse=True)
+    back = [order.index(d) for d in range(t.ndim)]
+    return t.permute(order).to(device).permute(back)
+
+
+def register_tstack_average(volumes):
+    """Average a time series of (X, Y, Z, C) volumes after registering each
+    to the first on their channel sums (each shift read to the host
+    once)."""
+    ref = torch.as_tensor(volumes[0])
+    ref_sum = fp.sum_in_order(ref, 3)
+    acc = ref
+    for v in volumes[1:]:
+        vol = torch.as_tensor(v)
+        shift = reg.register_translation_3d(ref_sum, fp.sum_in_order(vol, 3))
+        acc = acc + reg.apply_shift_3d(vol, shift)[0]
+    return acc / len(volumes)
+
+
+def register_volume_stack(volume_stack, device=None, shifts=None):
     """Register per-laser (X, Y, Z, C_l) volumes to laser 0 by 3D phase
     correlation of the logs of their channel sums, each shift read to the
-    host once, and concatenate the channels: (X, Y, Z, C), zeros where a
-    shifted laser has no data."""
-    vols = [torch.as_tensor(v) for v in volume_stack]
-    sums = [torch.log(fp.sum_in_order(v, 3) + 1e-8) for v in vols]
-    parts = [vols[0]]
-    for i in range(1, len(vols)):
-        shift = reg.register_translation_3d(sums[0], sums[i])
-        parts.append(reg.apply_shift_3d(vols[i], shift)[0])
-    return torch.cat(parts, dim=3)
+    host once, and concatenate the channels: (X, Y, Z, C) in the first
+    volume's dtype, zeros where a shifted laser has no data.
+
+    Each laser is written, shifted, into its channel slice of one
+    preallocated cube and let go of once its log sum and shift are done.
+    Pass ``volume_stack`` as a list to hand the volumes over: it is
+    emptied, so only one input volume is alive beside the cube. The
+    volumes may be host arrays; each goes to ``device`` (default: the
+    first volume's) in its turn. ``shifts``, a list, receives each laser's
+    (x, y, z) shift as ints (laser 0's is zeros)."""
+    vols = volume_stack if isinstance(volume_stack, list) \
+        else list(volume_stack)
+    first = torch.as_tensor(vols[0])
+    x, y, z = first.shape[:3]
+    dtype = first.dtype
+    dev = first.device if device is None else torch.device(device)
+    del first
+    channels = sum(v.shape[3] for v in vols)
+    out = torch.empty((x, y, z, channels), dtype=dtype, device=dev)
+    ref, c0 = None, 0
+    while vols:
+        vol = _on(vols.pop(0), dev)
+        log_sum = torch.log(fp.sum_in_order(vol, 3) + 1e-8)
+        if ref is None:
+            ref, shift = log_sum, (0, 0, 0)
+        else:
+            shift = tuple(int(v) for v in reg.register_translation_3d(
+                ref, log_sum).tolist())
+        del log_sum
+        reg.shift_into(out[..., c0:c0 + vol.shape[3]], vol, shift)
+        c0 += vol.shape[3]
+        del vol
+        if shifts is not None:
+            shifts.append(shift)
+    return out
+
+
+def stitch_tiles(tile_volumes, tile_masks, grid, tile_shape, overlap: int,
+                 out_shape, pad: int = 10, device=torch.device("cuda")):
+    """Host stitching of microscope tiles (host arrays) into one volume,
+    blended by overlap counts: chain phase-correlation registration of
+    50-deep strips along the first row and column (on ``device``, the card
+    unless the caller names the CPU), then accumulate intensity and hit
+    counts in numpy and divide. Returns the float32 ``out_shape``
+    volume."""
+    gy, gx = grid
+    shift_full = np.zeros((gy, gx, 3))
+    for i in range(gy):
+        for j in range(gx):
+            if i == 0 and j == 0:
+                continue
+            if j == 0:
+                a = tile_volumes[(i - 1) * gx][-50:]
+                b = tile_volumes[i * gx][:50]
+            else:
+                a = tile_volumes[i * gx + j - 1][:, -50:]
+                b = tile_volumes[i * gx + j][:, :50]
+            shift_full[i, j] = reg.register_translation_3d(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device),
+                torch.from_numpy(np.ascontiguousarray(b)).to(device)) \
+                .cpu().numpy()
+    full = np.zeros(out_shape, np.float32)
+    count = np.zeros(out_shape, np.float32)
+    ty, tx, tz = tile_shape
+    step_y = ty - overlap
+    step_x = tx - overlap
+    for i in range(gy):
+        for j in range(gx):
+            sy = int(i * step_y + shift_full[: i + 1, 0, 0].sum()
+                     + shift_full[i, 1: j + 1, 0].sum()) + pad
+            sx = int(j * step_x + shift_full[i, : j + 1, 1].sum()) + pad
+            sz = int(shift_full[i, : j + 1, 2].sum()) + pad
+            vol = np.asarray(tile_volumes[i * gx + j])
+            msk = np.asarray(tile_masks[i * gx + j]).astype(np.float32)
+            full[sy:sy + ty, sx:sx + tx, sz:sz + tz] += vol * msk
+            count[sy:sy + ty, sx:sx + tx, sz:sz + tz] += msk
+    count[count == 0] = 1
+    return full / count
 
 
 def stitch_tiles_device(tile_volumes, grid, overlap: int, out_shape,
@@ -369,6 +476,78 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
 
 
 # ---------------------------------------------------------------------------
+# The untiled engine
+# ---------------------------------------------------------------------------
+
+
+def _segment_post_enhance(enhanced, bkg, statics):
+    """Everything after the 3D LP-CV sweep on the whole (X, Y, Z) volume:
+    the k = 2 / 3 brightest-cluster masks, an opening, the seed size
+    filter (B3 counts and a B4 lookup of the keep table), fill-holes of
+    the seeds (inside the foreground, so the foreground needs no fill of
+    its own), CCL + rank of the seeds inside the background mask, and the
+    watershed over -enhanced. Returns (labels int32, n_cells int)."""
+    kmeans_iters, seed_min, ccl_iters, ws_iters, max_cells = statics
+    pos = enhanced > 0
+    fg3, int3 = km.brightest_cluster_masks(enhanced, (2, 3), kmeans_iters)
+    fg = fg3 & pos
+    interior = morph.binary_opening(int3 & pos & fg)
+    interior = segstats.remove_small_objects_fast(
+        interior, seed_min, 3, max_iters=ccl_iters, exact_fallback=False)
+    seeds_mask = morph.binary_fill_holes(interior, 1, 64)
+    del interior
+    markers, n_cells = segstats.rank_labels(
+        lab.label(seeds_mask & bkg, 3, ccl_iters), 3, ccl_iters)
+    markers = torch.clamp(markers, max=max_cells - 1)
+    seg = ws.watershed(-(enhanced.to(torch.float32) * bkg), markers,
+                       seeds_mask | (fg & bkg), 1, ws_iters)
+    return seg, min(int(n_cells), max_cells - 1)
+
+
+def segment_3d_from_sum(vol_sum,
+                        cfg: SegmentationConfig = SegmentationConfig(),
+                        max_cells: int = 16384, chunk_xy: int = 128,
+                        bf16: bool | None = None):
+    """3D LP-CV segmentation of a channel-summed (X, Y, Z) volume as one
+    volume, on the device of ``vol_sum``: log10 KMeans background, 3D
+    LP-CV (kernel B6 through the (X, Z, Y) permute on CUDA; ``bf16=None``
+    is bf16 there and f32 on the CPU; ``chunk_xy`` bounds only the plain
+    version's memory), then _segment_post_enhance. The floods keep the
+    reference's caps and run without a scan cap.
+
+    Pass ``vol_sum`` as a one-element list to hand it over (it is popped,
+    so it can be freed early). Returns (labels (X, Y, Z) int32, n_cells
+    int, enhanced (X, Y, Z) f32)."""
+    if isinstance(vol_sum, list):
+        vol_sum = vol_sum.pop()
+    vol_norm = vol_sum / torch.clamp(torch.max(vol_sum), min=1e-12)
+    del vol_sum
+    bkg = km.brightest_cluster_mask(torch.log10(vol_norm + 1e-8), 2,
+                                    cfg.kmeans_iters)
+    enhanced = lp_cv_enhance_3d_chunked(vol_norm, cfg, chunk_xy, bf16)
+    del vol_norm
+    statics = (cfg.kmeans_iters, cfg.lp_seed_min_size, cfg.ccl_max_iters,
+               cfg.watershed_max_iters, max_cells)
+    seg, n_cells = _segment_post_enhance(enhanced, bkg, statics)
+    return seg, n_cells, enhanced
+
+
+def segment_3d(volume_stack, cfg: SegmentationConfig = SegmentationConfig(),
+               max_cells: int = 16384, chunk_xy: int = 128,
+               bf16: bool | None = None, device=None, shifts=None):
+    """3D LP-CV segmentation of per-laser (X, Y, Z, C_l) volumes:
+    register_volume_stack (to ``device``, default the first volume's;
+    ``shifts`` receives the shifts; a list of volumes is emptied), the
+    channel sum in the reference's order, segment_3d_from_sum. Returns
+    (labels (X, Y, Z) int32, n_cells int, registered (X, Y, Z, C),
+    enhanced)."""
+    registered = register_volume_stack(volume_stack, device, shifts)
+    seg, n_cells, enhanced = segment_3d_from_sum(
+        [fp.sum_in_order(registered, 3)], cfg, max_cells, chunk_xy, bf16)
+    return seg, n_cells, registered, enhanced
+
+
+# ---------------------------------------------------------------------------
 # Streamed measurement
 # ---------------------------------------------------------------------------
 
@@ -426,6 +605,20 @@ def measure_volume_streamed(seg: torch.Tensor, chunk_loader, z_total: int,
 # ---------------------------------------------------------------------------
 
 
+def _load_stacks(sample) -> list:
+    """The per-laser z-stacks '{sample}_<laser>.npy' as host (X, Y, Z, C_l)
+    float32 arrays ('{sample}_<laser>.czi' where one exists, which
+    raises: ROADMAP §A.7)."""
+    volumes = []
+    for laser in SEVEN_BIT.lasers:
+        name = f"{sample}_{laser}.czi"
+        if not os.path.exists(name):
+            name = f"{sample}_{laser}.npy"
+        volumes.append(np.asarray(iio.load_image_zstack_fixed_t(name),
+                                  np.float32))
+    return volumes
+
+
 def segment_zstack_slice(image_stack_4d, z: int,
                          cfg: SegmentationConfig = SegmentationConfig(),
                          max_cells: int = 4096):
@@ -446,16 +639,7 @@ def measure_biofilm_images_2d_from_zstack_cli(
     {sample}_z_{z}_registered.npy, _seg.npy, _adjacency_seg.npy,
     _cell_information.csv (headerless: features, barcode, sample, label,
     seven shape columns), _identification.npy and _adjacency_matrix.csv."""
-    device = torch.device(device)
-    volumes = []
-    for laser in SEVEN_BIT.lasers:
-        name = f"{sample}_{laser}.czi"
-        if not os.path.exists(name):
-            name = f"{sample}_{laser}.npy"
-        volumes.append(torch.from_numpy(np.ascontiguousarray(
-            iio.load_image_zstack_fixed_t(name), np.float32)).to(device))
-    stack4d = register_volume_stack(volumes)
-    del volumes
+    stack4d = register_volume_stack(_load_stacks(sample), device)
     for z in z_indices:
         res, plane = segment_zstack_slice(stack4d, z, cfg, max_cells)
         n = int(res.n_cells)
@@ -482,3 +666,71 @@ def measure_biofilm_images_2d_from_zstack_cli(
         mcodes, mat, _ = bf.adjacency_matrix_from_pairs(pairs, codes,
                                                         taxon_lookup)
         bf.save_adjacency_matrix(f"{tag}_adjacency_matrix.csv", mcodes, mat)
+
+
+# ---------------------------------------------------------------------------
+# The volumetric analysis of a z-stack
+# ---------------------------------------------------------------------------
+
+
+def measure_biofilm_images_3d(sample, clf, taxon_lookup,
+                              cfg=SegmentationConfig(), max_cells=16384,
+                              save_bvox=True, device=torch.device("cuda"),
+                              timings=None, shifts=None):
+    """The volumetric biofilm analysis of one z-stack with a
+    models/artifacts ClassifierArrays: read the per-laser stacks
+    '{sample}_<laser>.npy' ((Z, H, W, C_l); a .czi raises, ROADMAP §A.7),
+    register them on ``device`` (the card unless the caller names the
+    CPU), segment the channel sum as one volume (segment_3d_from_sum),
+    and write {sample}_registered.npy, _seg.npy, _cell_information.csv
+    (features, barcode, probability, sample, label, 3D centroid, area,
+    type), _identification.npy and, with ``save_bvox``, the Blender
+    volumes _identification_{r,g,b}.bvox and _raw_image.bvox (the channel
+    sum). A cell is debris above 100,000 voxels or at a probability of at
+    most cfg.debris_prob_min. Returns the cell table as [(column, values),
+    ...].
+
+    The host reads all stacks first; each goes to the device, and its
+    host copy is freed, in its turn. ``timings``, a dict, receives each
+    stage's seconds (read, register, segment, measure, classify,
+    artifacts); ``shifts``, a list, the registration shifts."""
+    device = torch.device(device)
+    lap = bf.stage_timer(timings, device)
+    volumes = _load_stacks(sample)
+    lap("read")
+    registered = register_volume_stack(volumes, device, shifts)
+    lap("register")
+    seg, n, _ = segment_3d_from_sum([fp.sum_in_order(registered, 3)], cfg,
+                                    max_cells)
+    lap("segment")
+    avgint = rp.mean_intensities(seg, registered, max_cells)[1:n + 1] \
+        .cpu().numpy()
+    avgint_norm = avgint / np.maximum(avgint.max(axis=1, keepdims=True),
+                                      1e-12)
+    props = {k: v[1:n + 1].cpu().numpy() for k, v in
+             rp.shape_props_3d(seg, max_cells).items()}
+    lap("measure")
+    codes, max_prob, _, feats = classifier.classify(clf, avgint_norm, device)
+    lap("classify")
+    debris = (props["area"] > 100000) | (max_prob <= cfg.debris_prob_min)
+    table = (bf._feature_columns(feats, clf.n_channels)
+             + [("cell_barcode", np.array(codes, dtype=object)),
+                ("max_probability", max_prob),
+                ("sample", np.full(n, sample, dtype=object)),
+                ("label", np.arange(1, n + 1))]
+             + [(k, props[k]) for k in ("centroid_x", "centroid_y",
+                                        "centroid_z", "area")]
+             + [("type", np.where(debris, "debris", "cell").astype(object))])
+    outputs.save_npy(f"{sample}_registered.npy", registered)
+    seg_np = seg.cpu().numpy()
+    del seg
+    np.save(f"{sample}_seg.npy", seg_np)
+    outputs.write_frame(f"{sample}_cell_information.csv", table)
+    ident = bf.paint_taxon_identification(seg_np, codes, taxon_lookup, n)
+    np.save(f"{sample}_identification.npy", ident)
+    if save_bvox:
+        outputs.save_identification_bvox(ident, sample)
+        outputs.save_bvox(fp.sum_in_order(registered, 3).cpu().numpy(),
+                          f"{sample}_raw_image.bvox")
+    lap("artifacts")
+    return table

@@ -10,7 +10,9 @@ the same inputs, each in its own folder, at 192^2:
   fresh noise per z, lasers 2-4 rolled in x and y): the registered plane,
   labels, adjacency labels and identification image equal, the headerless
   cell table and the adjacency matrix byte-identical;
-- the refusals: -d 3 without -z (ROADMAP §A.5) and .czi inputs (§A.7).
+- the refusals: .czi inputs with -d 2, -z and -d 3 (ROADMAP §A.7). The
+  volumetric analysis (-d 3 without -z) is held against the JAX command
+  line in tests/test_torch_biofilm3d_cli.py.
 """
 
 import os
@@ -139,13 +141,11 @@ def test_cli_refusals(tmp_path):
     write_probe_design(tmp_path / "probes.csv")
     common = ["-p", str(tmp_path / "probes.csv"), "-r", FIXTURE,
               "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="§A.5"):
-        cli.main([str(tmp_path), *common, "-d", "3"])
     czi = tmp_path / "czi"
     czi.mkdir()
     for laser in JSEVEN_BIT.lasers:
         (czi / f"x_{laser}.czi").write_bytes(b"")
-    for flags in (["-d", "2"], ["-z", "0"]):
+    for flags in (["-d", "2"], ["-z", "0"], ["-d", "3"]):
         with pytest.raises(NotImplementedError, match="§A.7"):
             cli.main([str(czi), *common, *flags])
     assert cli.samples_in(str(czi)) == [os.path.join(str(czi), "x")]

@@ -166,8 +166,15 @@ def test_unported_inputs_raise(tmp_path, monkeypatch):
         images.load_image("fov_405.czi")
     with pytest.raises(ValueError):
         images.load_image("fov_405.png")
-    with pytest.raises(NotImplementedError, match="§A.5"):
-        cli_biofilm.main([str(tmp_path), "-d", "3", "--device", "cpu"])
+    (tmp_path / "probes.csv").write_text("target_taxon,code\n100,0000001\n")
+    for laser in ("488", "514", "561", "633"):
+        (tmp_path / f"stack_{laser}.czi").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        cli_biofilm.main([
+            str(tmp_path), "-d", "3", "-p", str(tmp_path / "probes.csv"),
+            "-r", os.path.join(os.path.dirname(__file__), "fixtures",
+                               "torch_port_clf_7b_127x50.npz"),
+            "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="§A.7"):
         images.load_image_zstack_fixed_t(str(tmp_path / "stack_488.czi"))
     monkeypatch.chdir(tmp_path)

@@ -1,7 +1,7 @@
 """The port never imports jax nor the JAX package: import every module of
 it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
-and measurement; the command lines, biofilm -d 2 and -z among them) in a
-subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
+and measurement; the command lines, biofilm -d 2, -z and -d 3 among them)
+in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
 (sys.modules[...] = None). The command lines run with pandas, matplotlib and imageio blocked
 too, which the GPU machine does not have."""
 
@@ -160,6 +160,45 @@ print("cells", len(open("fov/s_cell_information.csv").read().splitlines()) - 1,
 """
 
 
+SCRIPT_BIOFILM_3D = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import os
+import numpy as np
+from hiprfish_tpu_torch.config import SEVEN_BIT
+from hiprfish_tpu_torch.utils import synthetic, synthetic3d
+from hiprfish_tpu_torch.cli import biofilm
+os.chdir(sys.argv[2])
+spec = synthetic3d.VolumeSpec(shape=(96, 72, 40), spacing=(32, 24, 40),
+                              seed=3)
+codes = synthetic3d.node_codes(spec, 127) + 1
+lut = torch.from_numpy(np.stack([synthetic.barcode_spectrum(SEVEN_BIT, c)
+                                 for c in range(1, 128)]).astype(np.float32))
+cube = synthetic3d.channel_chunk_cm(spec, 127, 0, 40, lut, 1) \
+    .permute(1, 2, 3, 0).numpy()
+with open("probes.csv", "w") as f:
+    f.write("target_taxon,code\n")
+    f.writelines(f"{100 + i},{SEVEN_BIT.code_str(int(c))}\n"
+                 for i, c in enumerate(codes))
+os.makedirs("stacks")
+for laser, (lo, hi) in zip(SEVEN_BIT.lasers, SEVEN_BIT.blocks):
+    np.save(f"stacks/v_{laser}.npy", np.ascontiguousarray(cube[..., lo:hi]))
+biofilm.main(["stacks", "-p", "probes.csv", "-r", sys.argv[1], "-d", "3",
+              "--max_cells", "64", "--device", "cpu"])
+for name in ("v_seg.npy", "v_registered.npy", "v_identification.npy",
+             "v_raw_image.bvox", "v_identification_b.bvox",
+             "v_cell_information.csv"):
+    assert os.path.getsize("stacks/" + name) > 0, name
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+print("cells", len(open("stacks/v_cell_information.csv").read()
+                   .splitlines()) - 1)
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -191,3 +230,9 @@ def test_port_biofilm_cli_runs_without_jax_pandas_matplotlib(tmp_path):
     out = _run(SCRIPT_BIOFILM, "torch_port_clf_7b_127x50.npz", str(tmp_path))
     n_fov, n_slice = (int(v) for v in out)
     assert n_fov == n_slice == 6
+
+
+def test_port_biofilm_3d_cli_runs_without_jax_pandas_matplotlib(tmp_path):
+    out = _run(SCRIPT_BIOFILM_3D, "torch_port_clf_7b_127x50.npz",
+               str(tmp_path))
+    assert int(out[0]) == 9
