@@ -139,10 +139,32 @@ non-zero and prints no result:
      below 60 GiB, and a second segment_3d_from_sum of the written channel
      sum gives the same labels; print the stages' seconds, the bytes
      written and the peak.
+ 17. classifier training (no kernel of its own; its classifiers then feed
+     B1-B4): (a) train_check_heads (3 heads of the 7-bit fixture's rows,
+     n = 5000, 60 steps) and train_classifier (the 7-bit fixture recipe,
+     60 steps) on the CPU and on the card from the same inputs, initial
+     parameters and permutations: parameters within 2e-3, check bits on
+     >= 99.9 % of the rows equal, the same kNN matrix; (b) the committed
+     fixtures' recipes (tools/make_torch_port_fixture.py, rebuilt by the
+     port's utils/synthetic: 7-bit 127 codes x 50 rows, 10-bit 1023 codes
+     x 200 rows = 204,600 x 126 with the violet derivative, 300 steps)
+     retrained on the card: kNN matrices byte-identical to the fixtures',
+     check bits as the JAX-trained heads' on >= 99.9 % of the rows; then
+     fov_step and fov_step_ecoli on the 2000^2 FOVs with the port-trained
+     classifiers: the n_cells of phases 5 and 11, accuracy >= 0.99 over
+     >= 380 matched cells, B1-B4 launched; (c) cli.train at the
+     reference's defaults (-s 2000, 1000 Adam steps per head) on a
+     1023-code reference folder written by utils/synthetic
+     (cells_per_code=60, seed 0): -v violet_derivative (2,046,000 rows x
+     126, 6 heads, an 8,184-row kNN matrix; self-accuracy on the measured
+     means >= 0.99) and -v fret_biofilm_7b (254,000 positives + 254,000
+     negatives, scaler; self-accuracy recorded); each artifact loads
+     through models/artifacts.load_classifier; print each call's
+     synchronised stages, peak device memory and self-accuracy.
 
 At the end the card's line is printed again, then a JSON object with one
 entry per kernel (its launches on each path, errors, times, bound and
-library call) and the other phases' results; the last line is {"ok":
+library call) and the other phases' results (training among them); the last line is {"ok":
 true, "device": {...}}. The script imports neither jax
 nor the JAX package hiprfish_tpu.
 """
@@ -302,6 +324,10 @@ DOMAIN_LPCV2D = ((7, 5), (15, 12), (131, 5), (11, 129))
 # (patch, theta, phi, bf16)
 DOMAIN_LPCV3D = ((7, 5, 6, True), (7, 5, 6, False), (21, 5, 4, False),
                  (29, 3, 4, True))
+
+
+# phase 17c: simulations per code of cli.train's default
+TRAIN_SPC = 2000
 
 
 # the fewest compare-exchanges known to sort n = 0 .. 17 values (Knuth,
@@ -1376,6 +1402,337 @@ def _volume_cli_phase(torch, kernels, fixture_7b: str, dev,
             "repeat_seconds": again_s}
 
 
+def _check_bits(torch, clf, spectra, dev):
+    """(n, H) check-bit calls of ``clf``'s heads on ``spectra`` (the head
+    part of fused.classify_device), as numpy."""
+    import torch.nn.functional as F
+
+    from hiprfish_tpu_torch.pipeline import fused
+
+    arrays, _ = fused.classifier_from_numpy(clf, dev)
+    x = torch.from_numpy(np.ascontiguousarray(spectra, np.float32)).to(dev)
+    n_ch = clf.n_channels
+    scaled = x[:, :n_ch]
+    if clf.scaler_mean is not None:
+        scaled = (scaled - arrays["scaler_mean"]) / arrays["scaler_scale"]
+    wmax = arrays["check_heads"][0].d_in
+    cols = []
+    with torch.no_grad():
+        for head, (lo, hi) in zip(arrays["check_heads"], clf.check_blocks):
+            xin = scaled[:, lo:hi] if hi <= n_ch else x[:, lo:hi]
+            cols.append(head(F.pad(xin, (0, wmax - (hi - lo)))) > 0)
+    return torch.stack(cols, dim=1).cpu().numpy()
+
+
+def _train_cpu_vs_card(torch, dev) -> dict:
+    """17a: train_check_heads (3 heads of the 7-bit fixture's rows, n =
+    5000, 60 steps) and train_classifier (the 7-bit fixture recipe, 60
+    steps) on the CPU and on ``dev`` from the same inputs, initial
+    parameters and permutations."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, ClassifierConfig
+    from hiprfish_tpu_torch.models import classifier as mclf
+    from hiprfish_tpu_torch.models import train as mtrain
+    from hiprfish_tpu_torch.utils import synthetic
+
+    spectra, strs = synthetic.fixture_training_set(SEVEN_BIT, 50)
+    checks = mtrain.check_bits_for_codes(SEVEN_BIT, strs)
+    idx = np.random.RandomState(1).choice(len(spectra), 5000, replace=False)
+    blocks = SEVEN_BIT.blocks[:3]
+    x = np.zeros((3, 5000, 23), np.float32)
+    for h, (lo, hi) in enumerate(blocks):
+        x[h, :, :hi - lo] = spectra[idx, lo:hi]
+    x = torch.from_numpy(x)
+    y = torch.from_numpy(np.ascontiguousarray(checks[idx, :3].T))
+    gen = torch.Generator().manual_seed(0)
+    init = mclf.init_check_heads(gen, 3, 23, 64)
+    perms = torch.stack([torch.randperm(5000, generator=gen)
+                         for _ in range(3)])
+    p_cpu = mclf.train_check_heads(x, y, init, perms, 60, 3e-3)
+    p_dev = mclf.train_check_heads(
+        x.to(dev), y.to(dev), {k: v.to(dev) for k, v in init.items()},
+        perms.to(dev), 60, 3e-3)
+    p_err = max(float((p_cpu[k] - p_dev[k].cpu()).abs().max())
+                for k in p_cpu)
+    with torch.no_grad():
+        l_cpu = mclf.CheckHeads.from_params(p_cpu, "cpu")(x)
+        l_dev = mclf.CheckHeads.from_params(p_dev, dev)(x.to(dev)).cpu()
+    l_err = float((l_cpu - l_dev).abs().max())
+    h_agree = float(((l_cpu > 0) == (l_dev > 0)).float().mean())
+
+    n_heads, n = 4, len(spectra)
+    draws = (mclf.init_check_heads(gen, n_heads, 23, 64),
+             torch.stack([torch.randperm(n, generator=gen)
+                          for _ in range(n_heads)]))
+    cfg = ClassifierConfig(check_train_steps=60)
+    c_cpu, c_dev = (mclf.train_classifier(
+        None, SEVEN_BIT, spectra, strs, checks, cfg, device=d,
+        head_draws=draws) for d in ("cpu", dev))
+    same = (c_cpu.train_features.tobytes() == c_dev.train_features.tobytes()
+            and c_cpu.train_labels.tobytes() == c_dev.train_labels.tobytes())
+    c_agree = float((_check_bits(torch, c_cpu, spectra, "cpu")
+                     == _check_bits(torch, c_dev, spectra, dev))
+                    .all(axis=1).mean())
+    c_err = max(float(np.abs(a[k] - b[k]).max())
+                for a, b in zip(c_cpu.check_params, c_dev.check_params)
+                for k in a)
+    print(f"phase 17a train_check_heads 3 x 5000 rows, 60 steps, cpu vs "
+          f"card: max parameter difference {p_err:.3e} (tol 2e-3), logits "
+          f"{l_err:.3e}, check-bit agreement {h_agree:.6f}; "
+          f"train_classifier 7-bit 6350 rows: kNN matrix equal {same}, "
+          f"heads {c_err:.3e}, check-bit agreement on the rows "
+          f"{c_agree:.6f}")
+    if p_err > 2e-3 or h_agree < 0.999 or not same or c_agree < 0.999:
+        raise AssertionError("17a: the card's training disagrees with "
+                             "the CPU's")
+    return {"heads_max_param_diff": p_err, "heads_max_logit_diff": l_err,
+            "heads_check_agreement": h_agree, "knn_equal": same,
+            "classifier_max_param_diff": c_err,
+            "classifier_check_agreement": c_agree}
+
+
+def _train_recipes(torch, dev):
+    """17b (training): the committed fixtures' recipes retrained by the
+    port on ``dev`` (tools/make_torch_port_fixture.py: 7-bit 127 codes x
+    50 rows, 10-bit 1023 codes x 200 rows with the violet derivative,
+    300 steps each); each kNN matrix must be the fixture's, byte for byte,
+    and the heads' check bits on the rows must agree with the JAX-trained
+    heads' on >= 99.9 % of them. Returns ({tag: classifier}, report)."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT, ClassifierConfig
+    from hiprfish_tpu_torch.models import classifier as mclf
+    from hiprfish_tpu_torch.models import train as mtrain
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.utils import synthetic
+
+    dev = torch.device(dev)
+    clfs, report = {}, {}
+    for tag, layout, spc, fixture in (("7b", SEVEN_BIT, 50, FIXTURE),
+                                      ("10b", TEN_BIT, 200, FIXTURE_10B)):
+        spectra, strs = synthetic.fixture_training_set(layout, spc)
+        checks = mtrain.check_bits_for_codes(layout, strs)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        clf = mclf.train_classifier(
+            torch.Generator(dev).manual_seed(0), layout, spectra, strs,
+            checks, ClassifierConfig(check_train_steps=300),
+            violet_derivative=layout is TEN_BIT, device=dev)
+        _sync(torch, dev)
+        secs = time.perf_counter() - t0
+        fix = load_classifier(fixture)
+        same = (clf.train_features.tobytes() == fix.train_features.tobytes()
+                and clf.train_labels.tobytes() == fix.train_labels.tobytes())
+        got = _check_bits(torch, clf, spectra, dev)
+        want = _check_bits(torch, fix, spectra, dev)
+        agree = float((got == want).all(axis=1).mean())
+        truth = checks[:, :got.shape[1]] > 0.5
+        acc = float((got == truth).all(axis=1).mean())
+        print(f"phase 17b train {tag} {spectra.shape[0]} x "
+              f"{spectra.shape[1]}, 300 steps: {secs:.2f} s, kNN matrix "
+              f"{clf.train_features.shape} equal to the fixture's {same}; "
+              f"check bits agree with the JAX-trained heads on {agree:.6f} "
+              f"of the rows (right on {acc:.6f})")
+        if not same or agree < 0.999:
+            raise AssertionError(f"17b: the port-trained {tag} classifier "
+                                 "departs from the fixture")
+        clfs[tag] = clf
+        report[tag] = {"rows": int(spectra.shape[0]), "seconds": secs,
+                       "knn_equal": same, "check_agreement": agree,
+                       "check_accuracy": acc}
+    return clfs, report
+
+
+def _trained_steps(torch, kernels, dev, trained: dict, n_found: int,
+                   en_found: int) -> dict:
+    """17b (steps): fov_step on the 2000^2 7-bit FOV and fov_step_ecoli on
+    the 2000^2 10-bit FOV with the port-trained classifiers: the n_cells of
+    phases 5 and 11 (the committed fixtures'), barcode accuracy >= 0.99
+    over >= 380 matched cells, B1-B4 launched (counts set to 0 just before
+    each step and read just after)."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT, \
+        SegmentationConfig
+    from hiprfish_tpu_torch.pipeline import fused, fused_ecoli
+    from hiprfish_tpu_torch.utils import synthetic
+
+    cfg = SegmentationConfig()
+    out = {}
+    for name, make, tag, layout, codes, path, want in (
+            ("fov_step", synthetic.flagship_fov, "7b", SEVEN_BIT,
+             synthetic.FLAGSHIP_CODES, PATH_2D, n_found),
+            ("fov_step_ecoli", synthetic.ecoli_fov, "10b", TEN_BIT,
+             synthetic.ECOLI_CODES, PATH_ECOLI, en_found)):
+        fov = make()
+        arrays, static = fused.classifier_from_numpy(trained[tag], dev)
+        stack = tuple(torch.from_numpy(a).to(dev) for a in fov["stack"])
+        step = fused.fov_step if tag == "7b" else fused_ecoli.fov_step_ecoli
+        kernels.reset_launches()
+        res = step(stack, arrays, cfg, MAX_CELLS, static)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        n = int(res.n_cells)
+        correct, total = _barcode_accuracy(
+            res.segmentation.cpu().numpy(), fov["truth_labels"],
+            res.code_idx.cpu().numpy(), codes, list(trained[tag].codebook),
+            layout, n, MAX_CELLS)
+        del fov, stack, res, arrays
+        acc = correct / max(total, 1)
+        print(f"phase 17b {name} 2000^2 with the port-trained {tag} "
+              f"classifier: n_cells {n} (with the fixture {want}), matched "
+              f"{total}, accuracy {acc:.4f} ({correct}/{total}), launches "
+              f"{launches}")
+        missing = [k for k in path if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"17b {name}: kernels not launched: "
+                                 f"{missing}")
+        if n != want:
+            raise AssertionError(f"17b {name}: n_cells {n}, {want} with "
+                                 "the fixture")
+        if total < 380 or acc < 0.99:
+            raise AssertionError(f"17b {name}: accuracy below 0.99 or "
+                                 "fewer than 380 matched cells")
+        out[name] = {"n_cells": n, "matched": total, "accuracy": acc,
+                     "launches": launches}
+    return out
+
+
+def _self_accuracy(torch, clf, folder: str, dev) -> tuple[float, int]:
+    """(share, count) of the reference folder's measured code means that
+    ``clf`` calls as their own code (tests/test_train_builders.py's rule;
+    7-bit classifiers: the 10-bit codes with bit 6 clear, channels 32-94,
+    as their 7-bit codes, over the codes the classifier knows)."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT, \
+        convert_code_to_7b
+    from hiprfish_tpu_torch.models import train as mtrain
+    from hiprfish_tpu_torch.models.classifier import classify
+
+    stats = mtrain.load_reference_stats(folder)
+    seven = clf.layout_name == SEVEN_BIT.name
+    encs, want = [], []
+    for e in sorted(stats):
+        code = TEN_BIT.code_str(e)
+        if seven:
+            if code[6] != "0":
+                continue
+            code = convert_code_to_7b(code)
+        if code in clf.codebook:
+            encs.append(e)
+            want.append(code)
+    means = np.stack([stats[e][0] for e in encs]).astype(np.float32)
+    if seven:
+        means = means[:, 32:95]
+    means = means / np.maximum(means.max(axis=1, keepdims=True), 1e-12)
+    codes = classify(clf, means, device=dev)[0]
+    return float(np.mean([c == w for c, w in zip(codes, want)])), len(want)
+
+
+def _train_cli_phase(torch, dev, spc: int = TRAIN_SPC,
+                     device_flag: str = "cuda") -> dict:
+    """17c: cli.train at the reference's defaults (-s 2000, 1000 steps per
+    head) on a 1023-code synthetic reference folder (60 cells per code,
+    seed 0): -v violet_derivative (1023 x spc rows, 6 heads, 8 prototypes
+    per code) and -v fret_biofilm_7b (127 codes x spc positives and as
+    many negatives). Each call's synchronised stages come from wrapping
+    the module functions it calls: read (load_reference_stats), simulate
+    (_simulate_codes), augment (from the draws to train_classifier: the
+    device augmentation, the copy to the host, code strings and check
+    bits; the FRET builder simulates and augments code by code, one stage
+    there), heads (train_classifier up to the kNN matrix: padding, the
+    copies, the draws and the Adam loop, of which "heads loop" is
+    train_check_heads alone), prototypes (knn_reference) and save."""
+    from hiprfish_tpu_torch.cli import train as cli_train
+    from hiprfish_tpu_torch.config import TEN_BIT
+    from hiprfish_tpu_torch.models import classifier as mclf
+    from hiprfish_tpu_torch.models import train as mtrain
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.utils import synthetic
+
+    dev = torch.device(dev)
+
+    def clocked(name, fn, marks):
+        def run(*a, **kw):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(torch, dev)
+            marks[name] = (t0, time.perf_counter())
+            return out
+        return run
+
+    targets = ((mtrain, "load_reference_stats", "read"),
+               (mtrain, "_simulate_codes", "simulate"),
+               (mtrain, "train_classifier", "classifier"),
+               (mclf, "train_check_heads", "heads loop"),
+               (mclf, "knn_reference", "prototypes"),
+               (mtrain, "save_classifier", "save"))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hf_train_") as tmp:
+        folder = os.path.join(tmp, "hiprfish_1023_reference")
+        t0 = time.perf_counter()
+        synthetic.write_reference_folder(TEN_BIT, folder, range(1, 1024),
+                                         cells_per_code=60, seed=0)
+        print(f"phase 17c reference folder: 1023 codes x 60 cells written "
+              f"in {time.perf_counter() - t0:.1f} s")
+        for variant, n_codes, bar in (("violet_derivative", 1023, 0.99),
+                                      ("fret_biofilm_7b", 127, None)):
+            marks = {}
+            saved = [(m, a, getattr(m, a)) for m, a, _ in targets]
+            before = set(os.listdir(folder))
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                for m, a, name in targets:
+                    setattr(m, a, clocked(name, getattr(m, a), marks))
+                t0 = time.perf_counter()
+                cli_train.main([folder, "-v", variant, "-s", str(spc),
+                                "--device", device_flag])
+                _sync(torch, dev)
+                wall = time.perf_counter() - t0
+            finally:
+                for m, a, fn in saved:
+                    setattr(m, a, fn)
+            peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if dev.type == "cuda" else None)
+            dur = {k: e - s for k, (s, e) in marks.items()}
+            stages = {"read": dur["read"]}
+            if "simulate" in marks:
+                stages["simulate"] = dur["simulate"]
+                stages["augment"] = marks["classifier"][0] \
+                    - marks["simulate"][1]
+            else:
+                stages["simulate+augment"] = marks["classifier"][0] \
+                    - marks["read"][1]
+            stages["heads"] = marks["prototypes"][0] - marks["classifier"][0]
+            stages["heads loop"] = dur["heads loop"]
+            stages["prototypes"] = dur["prototypes"]
+            stages["save"] = dur["save"]
+            new = sorted(set(os.listdir(folder)) - before)
+            clf = load_classifier(os.path.join(folder, new[0]))
+            acc, n_means = _self_accuracy(torch, clf, folder, dev)
+            rows = n_codes * spc
+            width = clf.check_slice[0]
+            print(f"phase 17c cli.train -v {variant} -s {spc}: {rows} "
+                  f"simulated rows x {width} features"
+                  f"{' + as many negatives' if n_codes == 127 else ''}, "
+                  f"{len(clf.check_params)} heads, "
+                  f"{len(clf.codebook)} codes, kNN matrix "
+                  f"{clf.train_features.shape}; {wall:.2f} s; stages (s): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+                  + f"; peak device memory "
+                  f"{'n/a' if peak is None else f'{peak:.2f} GiB'}; "
+                  f"self-accuracy {acc:.4f} over {n_means} measured means; "
+                  f"artifact {new[0]}")
+            if len(new) != 1 or len(clf.codebook) != n_codes \
+                    or clf.train_features.shape[0] != 8 * n_codes:
+                raise AssertionError(f"17c {variant}: unexpected artifact")
+            if bar is not None and acc < bar:
+                raise AssertionError(f"17c {variant}: self-accuracy {acc} "
+                                     f"below {bar}")
+            out[variant] = {"rows": rows, "features": width,
+                            "seconds": wall, "stages": stages,
+                            "peak_gib": peak, "self_accuracy": acc,
+                            "measured_means": n_means, "artifact": new[0],
+                            "knn_rows": int(clf.train_features.shape[0])}
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -2009,6 +2366,22 @@ def main() -> int:
     # (c) cli.biofilm -d 3 on the tile
     vol_c = _volume_cli_phase(torch, kernels, FIXTURE, dev, lut_dev)
 
+    # 17. classifier training: (a) CPU vs card at a small size
+    del lut_dev
+    torch.cuda.empty_cache()
+    train_a = _train_cpu_vs_card(torch, dev)
+    # (b) the fixtures' recipes retrained on the card, then both 2000^2
+    # steps with the port-trained classifiers
+    trained, train_b = _train_recipes(torch, dev)
+    train_b.update(_trained_steps(torch, kernels, dev, trained, n_found,
+                                  en_found))
+    launches17 = train_b["fov_step"]["launches"]
+    launches17e = train_b["fov_step_ecoli"]["launches"]
+    del trained
+    torch.cuda.empty_cache()
+    # (c) cli.train at the reference's defaults
+    train_c = _train_cli_phase(torch, dev)
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -2021,7 +2394,9 @@ def main() -> int:
                    bio["cli.biofilm -d 2"]["cold"]["launches"], PATH_BIOFILM),
                "cli.biofilm -z": (bio["cli.biofilm -z"]["launches"],
                                   PATH_BIOFILM),
-               "cli.biofilm -d 3": (vol_c["launches"], PATH_BIOFILM_3D)}
+               "cli.biofilm -d 3": (vol_c["launches"], PATH_BIOFILM_3D),
+               "fov_step, port-trained": (launches17, PATH_2D),
+               "fov_step_ecoli, port-trained": (launches17e, PATH_ECOLI)}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -2038,7 +2413,10 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "domains": domains,
                       "clis": clis, "biofilm": bio,
                       "volume": {"cpu vs card": vol_a,
-                                 "cli.biofilm -d 3": vol_c}}))
+                                 "cli.biofilm -d 3": vol_c},
+                      "training": {"cpu vs card": train_a,
+                                   "recipes": train_b,
+                                   "cli.train": train_c}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

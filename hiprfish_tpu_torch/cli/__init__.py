@@ -5,7 +5,8 @@ python -m hiprfish_tpu_torch.cli.measure              (10-bit measurement)
 python -m hiprfish_tpu_torch.cli.classify             (10-bit classification)
 python -m hiprfish_tpu_torch.cli.measure_multispecies (7-bit measurement)
 python -m hiprfish_tpu_torch.cli.classify_spectra     (7-bit classification)
-python -m hiprfish_tpu_torch.cli.biofilm              (biofilm 2D / z-slice)
+python -m hiprfish_tpu_torch.cli.biofilm              (biofilm 2D, z-slice, 3D)
+python -m hiprfish_tpu_torch.cli.train                (classifier training)
 """
 
 import torch

@@ -2,10 +2,12 @@
 that its slices read).
 
 ``SEVEN_BIT`` is the 4-laser, 63-channel layout, ``TEN_BIT`` the 5-laser,
-95-channel one, and ``SegmentationConfig`` holds the segmentation
+95-channel one, ``SegmentationConfig`` holds the segmentation
 parameters ``pipeline/fused.py``, ``pipeline/fused_ecoli.py``,
-``pipeline/segment2d.py`` and ``pipeline/segment3d.py`` read, with the
-reference's defaults. Tests hold all three equal to the reference's.
+``pipeline/segment2d.py`` and ``pipeline/segment3d.py`` read, and
+``ClassifierConfig`` the training parameters of ``models/classifier.py``
+and ``models/train.py``, all with the reference's defaults. Tests hold
+them, and the barcode converters, equal to the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Tuple
 class ChannelLayout:
     """Spectral channel layout of one experiment family."""
 
+    name: str                      # stored in classifier artifacts
     lasers: Tuple[str, ...]        # excitation wavelengths, nm, as named
     n_channels: int
     block_bounds: Tuple[int, ...]  # len == n_lasers + 1
@@ -40,6 +43,7 @@ class ChannelLayout:
 # 5 lasers: 405, 488, 514, 561, 633 nm; the sixth check group belongs to
 # the violet-derivative block, which has no channels of its own
 TEN_BIT = ChannelLayout(
+    name="10bit",
     lasers=("405", "488", "514", "561", "633"),
     n_channels=95,
     block_bounds=(0, 32, 55, 75, 89, 95),
@@ -56,6 +60,7 @@ TEN_BIT = ChannelLayout(
 
 # 4 lasers: 488, 514, 561, 633 nm
 SEVEN_BIT = ChannelLayout(
+    name="7bit",
     lasers=("488", "514", "561", "633"),
     n_channels=63,
     block_bounds=(0, 23, 43, 57, 63),
@@ -67,6 +72,23 @@ SEVEN_BIT = ChannelLayout(
         (2, 3),             # c4: 633 block
     ),
 )
+
+# bits of the 10-bit code the 7-bit subset keeps
+SEVEN_BIT_SUBSET = (0, 2, 3, 4, 7, 8, 9)
+
+
+def convert_code_to_7b(code: str) -> str:
+    """Project a 10-bit barcode string onto the 7-bit fluorophore subset."""
+    return "".join(code[i] for i in SEVEN_BIT_SUBSET)
+
+
+def convert_code_to_10b(code: str) -> str:
+    """Embed a 7-bit barcode string into the 10-bit space, zeros on the
+    bits the subset drops (the inverse of convert_code_to_7b)."""
+    out = ["0"] * 10
+    for bit, i in zip(code, SEVEN_BIT_SUBSET):
+        out[i] = bit
+    return "".join(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +139,27 @@ class SegmentationConfig:
     epithelial_disk_radius: int = 100
     debris_area_max: int = 10000
     debris_prob_min: float = 0.95
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """Parameters of classifier training and inference."""
+
+    n_neighbors: int = 25
+    simulations_per_code: int = 2000
+    # the check-bit heads: one hidden layer, trained by Adam;
+    # models/classifier.train_check_heads batches by 4096 rows whatever
+    # check_batch says, as the reference's trainer does
+    check_hidden: int = 64
+    check_train_steps: int = 1000
+    check_lr: float = 3e-3
+    check_batch: int = 4096
+    # the kNN vote's softmax temperature
+    knn_temperature: float = 300.0
+    # spectra simulation: per-block excitation scale U(low, high) and the
+    # FRET builder's Foerster distance U(low, high)
+    excitation_adjust_low: float = 0.4
+    excitation_adjust_high: float = 1.0
+    fret_distance_low: float = 6.0
+    fret_distance_high: float = 10.0
+    dtype: str = "float32"

@@ -1,6 +1,7 @@
-"""Sample-name parsers and the probe-design reader of the experiment
-tables (a copy of the name helpers of hiprfish_tpu/io/tables.py, and its
-probe-design reader with the csv module in place of pandas)."""
+"""Sample-name parsers and the table readers of the experiments (a copy
+of the name helpers of hiprfish_tpu/io/tables.py; the probe design and
+the mix tables the training builders read, with the csv module in place
+of pandas)."""
 
 from __future__ import annotations
 
@@ -45,9 +46,9 @@ def _typed_column(texts):
         return np.array(texts, dtype=object)
 
 
-def read_probe_design(path: str) -> dict:
-    """Probe-design CSV as {column: numpy array}, in the file's column
-    order; ``code`` stays text (leading zeros kept), the other columns are
+def read_columns(path: str, text_columns=()) -> dict:
+    """A CSV table as {column: numpy array}, in the file's column order;
+    the ``text_columns`` stay text (leading zeros kept), the others are
     typed as pandas' read_csv types them."""
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
@@ -55,6 +56,16 @@ def read_probe_design(path: str) -> dict:
     cols = {}
     for j, name in enumerate(header):
         texts = [r[j] if j < len(r) else "" for r in body]
-        cols[name] = (np.array(texts, dtype=object) if name == "code"
+        cols[name] = (np.array(texts, dtype=object) if name in text_columns
                       else _typed_column(texts))
     return cols
+
+
+def read_probe_design(path: str) -> dict:
+    """Probe-design CSV as {column: numpy array}; ``code`` stays text."""
+    return read_columns(path, ("code",))
+
+
+def read_mix_barcodes(path: str) -> list:
+    """The barcodes of a mix table: its ``Barcodes`` column as ints."""
+    return [int(b) for b in read_columns(path)["Barcodes"]]

@@ -1,6 +1,7 @@
-"""Read the reference's classifier ``.npz`` without jax (the counterpart
-of hiprfish_tpu/models/artifacts.py::load_classifier, whose module imports
-jax through models/classifier.py)."""
+"""Write and read the reference's classifier ``.npz`` without jax (the
+counterparts of hiprfish_tpu/models/artifacts.py::save_classifier and
+load_classifier, whose module imports jax through models/classifier.py).
+Both packages read what either writes."""
 
 from __future__ import annotations
 
@@ -31,6 +32,37 @@ class ClassifierArrays:
     temperature: float = 30.0
     violet_derivative: bool = False
     full_derivative: bool = False
+
+
+def save_classifier(path: str, clf: ClassifierArrays) -> None:
+    """Write the keys load_classifier reads, with the reference's
+    meta_json (the same keys in the same order), compressed."""
+    arrays = {
+        "train_features": clf.train_features,
+        "train_labels": clf.train_labels,
+    }
+    if clf.scaler_mean is not None:
+        arrays["scaler_mean"] = clf.scaler_mean
+        arrays["scaler_scale"] = clf.scaler_scale
+    for b, params in enumerate(clf.check_params):
+        for k, v in params.items():
+            arrays[f"check{b}/{k}"] = np.asarray(v)
+    meta = {
+        "layout_name": clf.layout_name,
+        "n_channels": clf.n_channels,
+        "blocks": [list(b) for b in clf.blocks],
+        "check_slice": list(clf.check_slice),
+        "codebook": list(clf.codebook),
+        "check_blocks": [list(b) for b in clf.check_blocks],
+        "n_neighbors": clf.n_neighbors,
+        "temperature": clf.temperature,
+        "violet_derivative": clf.violet_derivative,
+        "full_derivative": clf.full_derivative,
+        "n_check_heads": len(clf.check_params),
+    }
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                        dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
 
 
 def load_classifier(path: str) -> ClassifierArrays:

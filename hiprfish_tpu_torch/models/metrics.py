@@ -1,5 +1,6 @@
 """Gated per-laser-block cosine distances as matrix products (torch port of
-hiprfish_tpu/models/metrics.py::block_cosine_distance_matrix).
+hiprfish_tpu/models/metrics.py::block_cosine_distance_matrix), and the
+metric's blocks and check columns of a layout (``metric_for_layout``).
 
 The GEMMs are plain float32 ``torch.matmul``: the pipeline turns TF32 off
 where it starts (pipeline/fused.py), so they run in full float32.
@@ -61,3 +62,20 @@ def block_cosine_distance_matrix(
     g_sum = torch.sum(gates, dim=1)[:, None]
     gated = (g_sum - g_cos - g_both_zero) / n_blocks
     return torch.where(agree, gated, ungated)
+
+
+def metric_for_layout(layout, violet_derivative: bool = False):
+    """(blocks, check_slice) of the gated metric of a channel layout: the
+    layout's laser blocks, then with ``violet_derivative`` the block of
+    np.diff of the first one, and one check column per metric block (the
+    10-bit layout: 5 without the derivative block, 6 with it; the 7-bit
+    layout: 4)."""
+    blocks = list(layout.blocks)
+    c = layout.n_channels
+    if violet_derivative:
+        first = layout.blocks[0]
+        d = first[1] - first[0] - 1  # np.diff width of the first block
+        blocks = blocks + [(c, c + d)]
+        c = c + d
+    n_checks = min(len(layout.check_bit_groups), len(blocks))
+    return tuple(blocks), (c, c + n_checks)

@@ -135,3 +135,70 @@ def ecoli_fov():
     """The 10-bit E. coli FOV (see ECOLI_* above), seed 2."""
     return make_fov(TEN_BIT, list(ECOLI_CODES), shape=ECOLI_SHAPE, seed=2,
                     laser_shifts=ECOLI_SHIFTS, cell_axes=ECOLI_CELL_AXES)
+
+
+def write_reference_folder(layout: ChannelLayout, folder: str, encs,
+                           cells_per_code: int = 60, seed: int = 0,
+                           prefix: str = "08_18_2018", noise: float = 0.02,
+                           write_norm: bool = False) -> None:
+    """Write synthetic measured-reference CSVs
+    ('{prefix}_enc_<n>_avgint.csv', and '..._avgint_norm.csv' with
+    ``write_norm``) for each barcode, the files the training builders
+    glob: per-cell mean spectra with a random gain and Gaussian noise,
+    from RandomState(seed) in the reference's order."""
+    import os
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    spectra = fluorophore_spectra(layout)
+    for enc in encs:
+        spec = barcode_spectrum(layout, enc, spectra)
+        gains = rng.uniform(0.7, 1.3, (cells_per_code, 1))
+        rows = gains * spec[None, :] + rng.randn(
+            cells_per_code, layout.n_channels) * noise * spec.max()
+        rows = np.clip(rows, 0, None)
+        path = os.path.join(folder, f"{prefix}_enc_{enc}_avgint.csv")
+        np.savetxt(path, rows, delimiter=",")
+        if write_norm:
+            norm = rows / np.maximum(rows.max(axis=1, keepdims=True), 1e-12)
+            np.savetxt(
+                os.path.join(folder, f"{prefix}_enc_{enc}_avgint_norm.csv"),
+                norm, delimiter=",")
+
+
+def fixture_training_set(layout: ChannelLayout, spc: int):
+    """The simulated training rows of the committed classifier fixtures
+    (tools/make_torch_port_fixture.py, bench.py's recipes), from
+    RandomState(0): (spectra (n, C'), code strings).
+
+    7-bit: 50 rows per code drawn code by code, gain U(0.7, 1.3) then
+    N(0, 0.02) noise, clipped at 0 and row-max normalised. 10-bit: every
+    code's gains (1023, spc, 1), then all the noise, clipped and row-max
+    normalised, with the violet derivative (np.diff of channels 0-31)
+    appended."""
+    rng = np.random.RandomState(0)
+    lut = fluorophore_spectra(layout)
+    n_codes = 2 ** layout.n_bits - 1
+    codes = range(1, n_codes + 1)
+    code_strs = [layout.code_str(c) for c in codes for _ in range(spc)]
+    if layout is SEVEN_BIT:
+        rows = []
+        for c in codes:
+            spec = barcode_spectrum(layout, c, lut)
+            r = rng.uniform(0.7, 1.3, (spc, 1)) * spec[None, :] \
+                + rng.randn(spc, layout.n_channels) * 0.02
+            rows.append(np.clip(r, 0, None))
+        spectra = np.concatenate(rows).astype(np.float32)
+        spectra = spectra / np.maximum(spectra.max(axis=1, keepdims=True),
+                                       1e-12)
+        return spectra, code_strs
+    base = np.stack([barcode_spectrum(layout, c, lut) for c in codes])
+    gains = rng.uniform(0.7, 1.3, (n_codes, spc, 1)).astype(np.float32)
+    noise = rng.randn(n_codes, spc, layout.n_channels).astype(np.float32) \
+        * 0.02
+    spectra = np.clip(gains * base[:, None, :] + noise, 0, None)
+    spectra = spectra.reshape(n_codes * spc, layout.n_channels)
+    spectra /= np.maximum(spectra.max(axis=1, keepdims=True), 1e-12)
+    spectra = np.concatenate(
+        [spectra, np.diff(spectra[:, :32], axis=1)], axis=1)
+    return spectra, code_strs

@@ -18,7 +18,8 @@ from hiprfish_tpu.pipeline import fused as jfused
 from hiprfish_tpu.utils import synthetic
 from hiprfish_tpu_torch.models import metrics as tmetrics
 from hiprfish_tpu_torch.models.artifacts import load_classifier as tload
-from hiprfish_tpu_torch.models.classifier import CheckHead
+from hiprfish_tpu_torch.models.classifier import (CheckHead, CheckHeads,
+                                                  train_classifier)
 from hiprfish_tpu_torch.pipeline import fused as tfused
 from hiprfish_tpu_torch.utils import synthetic3d as t3
 
@@ -193,16 +194,35 @@ def test_classify_capped_matches_jax_10b(n_cells, cap):
 _SPEC = dict(shape=(48, 48, 8), spacing=(24, 24, 8), seed=0)
 
 
+def _train_with_no_device_named():
+    """train_classifier on 40 rows with no device named. Its generator is
+    on the card where there is one: the heads' draws then succeed only if
+    the training tensors are there too, so the result is a tensor on the
+    generator's device."""
+    from hiprfish_tpu_torch import config as tconfig
+    from hiprfish_tpu_torch.models.train import check_bits_for_codes
+
+    gen = torch.Generator("cuda" if torch.cuda.is_available() else "cpu")
+    spectra = _spectra(40, 0)
+    codes = [tconfig.SEVEN_BIT.code_str(1 + i % 127) for i in range(40)]
+    train_classifier(gen, tconfig.SEVEN_BIT, spectra, codes,
+                     check_bits_for_codes(tconfig.SEVEN_BIT, codes),
+                     tconfig.ClassifierConfig(check_train_steps=2))
+    return torch.empty(0, device=gen.device)
+
+
 @pytest.mark.parametrize("make", [
     lambda: tfused.classifier_from_numpy(tload(FIXTURE))[0]
     ["train_features"],
     lambda: next(CheckHead.from_numpy(tload(FIXTURE).check_params[0])
                  .parameters()),
+    lambda: next(CheckHeads(2, 8, 4).parameters()),
+    _train_with_no_device_named,
     lambda: t3.truth_chunk(t3.VolumeSpec(**_SPEC), 63, 0, 2)[0],
     lambda: t3.build_sum_volume(t3.VolumeSpec(**_SPEC), 63, np.ones(63),
                                 z_chunk=4),
-], ids=["classifier_from_numpy", "CheckHead.from_numpy", "truth_chunk",
-        "build_sum_volume"])
+], ids=["classifier_from_numpy", "CheckHead.from_numpy", "CheckHeads",
+        "train_classifier", "truth_chunk", "build_sum_volume"])
 def test_entry_points_default_to_the_card(make):
     # with no device named they ask for the card: on a machine without one
     # they raise rather than quietly run on the CPU

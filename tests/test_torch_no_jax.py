@@ -1,7 +1,7 @@
 """The port never imports jax nor the JAX package: import every module of
 it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
-and measurement; the command lines, biofilm -d 2, -z and -d 3 among them)
-in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
+and measurement; the command lines, biofilm -d 2, -z and -d 3 and the
+trainer among them) in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
 (sys.modules[...] = None). The command lines run with pandas, matplotlib and imageio blocked
 too, which the GPU machine does not have."""
 
@@ -199,6 +199,39 @@ print("cells", len(open("stacks/v_cell_information.csv").read()
 """
 
 
+SCRIPT_TRAIN = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import os
+from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT
+from hiprfish_tpu_torch.utils import synthetic
+from hiprfish_tpu_torch.cli import train
+from hiprfish_tpu_torch.models.artifacts import load_classifier
+os.chdir(sys.argv[2])
+synthetic.write_reference_folder(TEN_BIT, "ref", [5, 37, 515, 96, 640],
+                                 cells_per_code=20, seed=0, write_norm=True)
+synthetic.write_reference_folder(TEN_BIT, "ref", [512, 128, 64, 32, 4, 2, 1],
+                                 cells_per_code=20, seed=3)
+with open("probes.csv", "w") as f:
+    f.write("target_taxon,code\n100,0000011\n101,1000001\n")
+with open("mix_2.csv", "w") as f:
+    f.write("Barcodes\n5\n37\n")
+flags = ["--device", "cpu"]
+train.main(["ref", "-v", "violet_derivative", "-s", "20", *flags])
+train.main(["ref", "-v", "fret_biofilm_7b", "-s", "10", "-p", "probes.csv",
+            *flags])
+train.main(["ref", "-v", "select", "-s", "20", "-t", "mix_2.csv", *flags])
+names = sorted(n for n in os.listdir("ref") if n.endswith(".npz"))
+assert len(names) == 3, names
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+print("cells", *(len(load_classifier("ref/" + n).codebook) for n in names))
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -236,3 +269,11 @@ def test_port_biofilm_3d_cli_runs_without_jax_pandas_matplotlib(tmp_path):
     out = _run(SCRIPT_BIOFILM_3D, "torch_port_clf_7b_127x50.npz",
                str(tmp_path))
     assert int(out[0]) == 9
+
+
+def test_port_trainer_runs_without_jax_pandas_matplotlib(tmp_path):
+    # cli.train's violet-derivative, FRET (probe design) and mix-table
+    # variants; the artifacts in name order: reference_simulate_10_DSGN_...
+    # (2 codes), reference_simulate_20_... (12 codes), ..._select_mix_2_...
+    out = _run(SCRIPT_TRAIN, "torch_port_clf_7b_127x50.npz", str(tmp_path))
+    assert [int(v) for v in out] == [2, 12, 2]
