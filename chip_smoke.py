@@ -87,7 +87,8 @@ non-zero and prints no result:
      the barcode and label columns of _cell_information.csv) and must
      reach 399 and 389 matched cells at accuracy 1.0, the JAX engines'
      counts on these FOVs, with the same artifacts in both calls; print
-     each call's wall seconds and each measure call's peak device memory;
+     each call's wall seconds and each measure call's peak device memory.
+     The planes and truth labels are kept (moved, not copied) for 18;
  15. the biofilm paths (B1 and B2 on the card): (a) segment_lpcv(...,
      "biofilm") at bkg_min_size=200, epithelial_disk_radius=6 on the CPU
      (plain versions) and on the card, on the 192^2 seed-5 FOV (equal
@@ -161,11 +162,32 @@ non-zero and prints no result:
      negatives, scaler; self-accuracy recorded); each artifact loads
      through models/artifacts.load_classifier; print each call's
      synchronised stages, peak device memory and self-accuracy.
+ 18. cli.workflow at its defaults (device cuda, max_cells 4096): the
+     measure -> classify -> collect loop over a table of FOVs in this warm
+     process, each run in a temporary directory with its launches counted
+     from zero: (a) --family ecoli, mode R, on two 2000^2 single-code
+     10-bit FOVs (make_fov(TEN_BIT, [enc] * 400, ...) for the codes 260
+     and 186 of ECOLI_CODES, 2 and 5 set bits) with the committed 1023-class
+     classifier linked in under the ecoli convention's name (SPC 200):
+     _results.csv has 2 rows, each NCells >= 380 and ErrorRate <= 0.01,
+     ErrorRateUpperLimit T or F, B3 and B4 launched; (b) mode M on phase
+     14's 400-code FOV (its planes linked in): 1023 abundance rows, FOV1
+     summing to the _cell_ids.txt lines and NCells, >= 380 planted codes
+     counted, >= 0.99 of the counted cells on planted codes; (c)
+     --family multispecies on phase 14's 7-bit FOV with the 127-code
+     classifier linked in under the 7-bit convention's name: 389 matched
+     at 1.0 from _cell_information.csv, B1 and B2 launched; (d) (a) again
+     on the same directory: no stage re-runs (only collect), no artifact's
+     mtime changes, no kernel launches. Print each run's RunLog summary
+     (measure, classify and collect seconds, in total and per call), (d)'s
+     seconds and the bytes the phase wrote. (a)'s planes are its only
+     large writes; a linked file is never written again.
 
-At the end the card's line is printed again, then a JSON object with one
-entry per kernel (its launches on each path, errors, times, bound and
-library call) and the other phases' results (training among them); the last line is {"ok":
-true, "device": {...}}. The script imports neither jax
+At the end the script's total seconds and the card's line are printed,
+then a JSON object with one entry per kernel (its launches on each path,
+errors, times, bound and library call) and the other phases' results
+(training and the workflow among them); the last line is {"ok": true,
+"device": {...}}. The script imports neither jax
 nor the JAX package hiprfish_tpu.
 """
 
@@ -246,6 +268,23 @@ LASERS_7B = ("488", "514", "561", "633")
 # the JAX engines' matched cells on the 2000^2 FOVs at max_cells 4096
 CLI_MATCHED_10B = 399
 CLI_MATCHED_7B = 389
+# phase 18: cli.workflow. (a)'s two single-code reference FOVs (from
+# ECOLI_CODES, of 2 and 5 set bits), the SPC the committed fixtures were
+# trained at, and their names under the reference's classifier
+# conventions (io/tables.reference_clf_path_from_row for the 10-bit
+# family, workflows/driver.run_multispecies_workflow for the 7-bit one)
+WORKFLOW_ENCS = (260, 186)
+# (a)'s bar on each FOV's ErrorRate (a FOV without errors reports 1 /
+# NCells, its upper limit)
+WORKFLOW_MAX_ERROR = 0.01
+WORKFLOW_SPC_10B = 200
+WORKFLOW_SPC_7B = 50
+WORKFLOW_CLF_10B = (f"reference_simulate_{WORKFLOW_SPC_10B}_excitation_"
+                    "adjusted_normalized_violet_derivative_umap_transform"
+                    ".npz")
+WORKFLOW_CLF_7B = (f"reference_simulate_{WORKFLOW_SPC_7B}_interaction_"
+                   "simulated_excitation_adjusted_normalized_umap_transform_"
+                   "biofilm_7b.npz")
 # phase 15: the kernels of the biofilm paths; the 192^2 FOV's codes
 # (tests/test_biofilm_and_3d.py); the JAX engine's segment count on the
 # 2000^2 FOV (hiprfish_tpu.pipeline.segment2d.segment_lpcv, biofilm, on the
@@ -772,9 +811,11 @@ def _cli_pass(torch, kernels, measure_main, classify_main, measure_argv,
     return seconds, launches, prev, peaks
 
 
-def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
+def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str,
+               keep: str) -> dict:
     """Phase 14: the four command lines on the 2000^2 FOVs, in a temporary
-    directory that is removed afterwards."""
+    directory that is removed afterwards. The FOVs' planes and truth
+    labels are moved into ``keep`` for phase 18 (no second write)."""
     from hiprfish_tpu_torch.cli import classify as cli_classify
     from hiprfish_tpu_torch.cli import classify_spectra as cli_spectra
     from hiprfish_tpu_torch.cli import measure as cli_measure
@@ -831,6 +872,9 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str) -> dict:
                 out[name] = {"n_cells": n_found, "matched": matched,
                              "accuracy": acc, "seconds": seconds,
                              "peak_gib": peaks, "launches": launches}
+                for fname in names:
+                    os.rename(fname, os.path.join(keep, fname))
+                np.save(os.path.join(keep, f"{sample}_truth.npy"), truth)
                 for fname in os.listdir("."):
                     os.remove(fname)
         finally:
@@ -1733,6 +1777,204 @@ def _train_cli_phase(torch, dev, spc: int = TRAIN_SPC,
     return out
 
 
+def _write_experiment(root: str, rows, mode: str, clf: str,
+                      clf_name: str) -> tuple:
+    """A workflow experiment under ``root``: data/fovs (the planes, linked
+    or written by the caller), data/ref/<clf_name> linked to ``clf``, the
+    experiment table with ``rows`` (IMAGES, SPC) and the config. Returns
+    (config path, table path, fovs folder)."""
+    fovs = os.path.join(root, "data", "fovs")
+    os.makedirs(fovs)
+    os.makedirs(os.path.join(root, "data", "ref"))
+    os.symlink(clf, os.path.join(root, "data", "ref", clf_name))
+    table = os.path.join(root, "images_table.csv" if mode == "R"
+                         else "images_table_mix_0.csv")
+    with open(table, "w") as f:
+        f.write("SAMPLE,IMAGES,CALIBRATION,CALIBRATION_FILENAME,"
+                "REFERENCE_FOLDER,SPC\n")
+        f.writelines(f"fovs,{image},F,none,ref,{spc}\n"
+                     for image, spc in rows)
+    config = os.path.join(root, "hiprfish_config_imaging.json")
+    with open(config, "w") as f:
+        json.dump({"__default__": {"SCRIPTS_PATH": "",
+                                   "DATA_DIR": os.path.join(root, "data")},
+                   "images": {"image_list_table": table,
+                              "image_type": mode}}, f)
+    return config, table, fovs
+
+
+def _link_planes(src: str, sample: str, dst: str, image: str, lasers):
+    for laser in lasers:
+        os.symlink(os.path.join(src, f"{sample}_{laser}.npy"),
+                   os.path.join(dst, f"{image}_{laser}.npy"))
+
+
+def _workflow_run(torch, kernels, config: str, family: str, name: str):
+    """cli.workflow at its defaults (device cuda, max_cells 4096), its
+    launches counted from zero. Returns (RunLog, seconds, launches)."""
+    from hiprfish_tpu_torch.cli import workflow as cli_workflow
+
+    kernels.reset_launches()
+    t0 = time.time()
+    log = cli_workflow.main([config, "--family", family])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = kernels.launch_counts()
+    summary = log.summary()
+    print(f"phase 18 {name}: {seconds:.2f} s; " + ", ".join(
+        f"{k} {v['total_s']:.3f} s / {v['count']} = "
+        f"{v['total_s'] / v['count']:.3f} s per call"
+        for k, v in summary.items()) + f"; launches {launches}")
+    return log, seconds, launches
+
+
+def _workflow_phase(torch, kernels, fixture_10b: str, fixture_7b: str,
+                    planes: str) -> dict:
+    """Phase 18: cli.workflow on the 2000^2 FOVs, the measure -> classify
+    -> collect loop in one process; ``planes`` holds phase 14's planes and
+    truth labels."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT
+    from hiprfish_tpu_torch.io import tables
+    from hiprfish_tpu_torch.utils import synthetic
+
+    t_phase = time.time()
+    # the bar of phases 5, 11 and 14: >= 0.95 of the planted cells
+    min_cells = int(0.95 * len(synthetic.ECOLI_CODES))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) ecoli, mode R: two single-code reference FOVs
+        config_r, table_r, fovs_r = _write_experiment(
+            os.path.join(tmp, "ecoli_R"),
+            [(f"run_enc_{enc}", WORKFLOW_SPC_10B) for enc in WORKFLOW_ENCS],
+            "R", fixture_10b, WORKFLOW_CLF_10B)
+        t0 = time.time()
+        for enc in WORKFLOW_ENCS:
+            fov = synthetic.make_fov(
+                TEN_BIT, [enc] * len(synthetic.ECOLI_CODES),
+                synthetic.ECOLI_SHAPE, seed=enc,
+                laser_shifts=synthetic.ECOLI_SHIFTS,
+                cell_axes=synthetic.ECOLI_CELL_AXES)
+            for laser, plane in zip(LASERS_10B, fov["stack"]):
+                np.save(os.path.join(fovs_r, f"run_enc_{enc}_{laser}.npy"),
+                        plane)
+            del fov
+        print(f"phase 18 (a) two single-code 10-bit FOVs written in "
+              f"{time.time() - t0:.1f} s")
+        log, sec, launches = _workflow_run(
+            torch, kernels, config_r, "ecoli", "(a) ecoli R")
+        res = tables.read_columns(table_r[:-len(".csv")] + "_results.csv")
+        if (len(res["NCells"]) != 2 or (res["NCells"] < min_cells).any()
+                or not (res["ErrorRate"] <= WORKFLOW_MAX_ERROR).all()
+                or not set(res["ErrorRateUpperLimit"]) <= {"T", "F"}):
+            raise AssertionError(f"cli.workflow ecoli R: results {res}")
+        missing = [k for k in PATH_CLI_MEASURE if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by cli.workflow "
+                                 f"ecoli R: {missing}")
+        out["ecoli R"] = {
+            "seconds": sec, "summary": log.summary(), "launches": launches,
+            "n_cells": res["NCells"].tolist(),
+            "error_rate": res["ErrorRate"].tolist(),
+            "upper_limit": list(res["ErrorRateUpperLimit"])}
+        print(f"phase 18 (a) NCells {out['ecoli R']['n_cells']}, ErrorRate "
+              f"{out['ecoli R']['error_rate']}, upper limit "
+              f"{out['ecoli R']['upper_limit']}")
+
+        # (b) ecoli, mode M: phase 14's 400-code FOV
+        config_m, table_m, fovs_m = _write_experiment(
+            os.path.join(tmp, "ecoli_M"), [("run_mix_0_fov_1",
+                                            WORKFLOW_SPC_10B)],
+            "M", fixture_10b, WORKFLOW_CLF_10B)
+        _link_planes(planes, "ecoli_enc_5", fovs_m, "run_mix_0_fov_1",
+                     LASERS_10B)
+        log, sec, launches_m = _workflow_run(
+            torch, kernels, config_m, "ecoli", "(b) ecoli M")
+        res = tables.read_columns(table_m[:-len(".csv")] + "_results.csv")
+        ab = tables.read_columns(table_m[:-len(".csv")]
+                                 + "_results_abundance.csv")
+        with open(os.path.join(fovs_m, "run_mix_0_fov_1_cell_ids.txt")) as f:
+            n_ids = len(f.read().split())
+        counts = ab["FOV1"]
+        planted = np.isin(ab["Barcodes"], synthetic.ECOLI_CODES)
+        on_planted = float(counts[planted].sum() / max(counts.sum(), 1))
+        n_planted = int((counts[planted] >= 1).sum())
+        print(f"phase 18 (b) abundance rows {len(counts)}, FOV1 sum "
+              f"{counts.sum():.0f}, cell ids {n_ids}, NCells "
+              f"{int(res['NCells'][0])}, planted codes counted {n_planted} "
+              f"of {len(synthetic.ECOLI_CODES)}, on planted codes "
+              f"{on_planted:.4f}")
+        if (len(counts) != 2 ** TEN_BIT.n_bits - 1 or counts.sum() != n_ids
+                or n_ids != res["NCells"][0] or n_planted < min_cells
+                or on_planted < 0.99):
+            raise AssertionError("cli.workflow ecoli M: abundance table "
+                                 "off")
+        missing = [k for k in PATH_CLI_MEASURE if launches_m[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by cli.workflow "
+                                 f"ecoli M: {missing}")
+        out["ecoli M"] = {"seconds": sec, "summary": log.summary(),
+                          "launches": launches_m, "n_cells": n_ids,
+                          "planted_counted": n_planted,
+                          "on_planted": on_planted}
+
+        # (c) multispecies: phase 14's 7-bit flagship FOV
+        sample = "community_A_564_fov_1"
+        config_s, _, fovs_s = _write_experiment(
+            os.path.join(tmp, "multispecies"), [(sample, WORKFLOW_SPC_7B)],
+            "R", fixture_7b, WORKFLOW_CLF_7B)
+        _link_planes(planes, "flagship", fovs_s, sample, LASERS_7B)
+        log, sec, launches_s = _workflow_run(
+            torch, kernels, config_s, "multispecies", "(c) multispecies")
+        seg, codebook, idx = _artifact_calls(os.path.join(fovs_s, sample),
+                                             True)
+        n_found = len(codebook) - 1
+        correct, matched = _barcode_accuracy(
+            seg, np.load(os.path.join(planes, "flagship_truth.npy")), idx,
+            synthetic.FLAGSHIP_CODES, codebook, SEVEN_BIT, n_found,
+            n_found + 1)
+        print(f"phase 18 (c) n_cells {n_found}, matched {matched}, "
+              f"accuracy {correct / max(matched, 1):.4f} from the artifacts")
+        if matched != CLI_MATCHED_7B or correct != matched:
+            raise AssertionError(f"cli.workflow multispecies: {correct}/"
+                                 f"{matched} matched cells correct, "
+                                 f"expected {CLI_MATCHED_7B}/"
+                                 f"{CLI_MATCHED_7B}")
+        missing = [k for k in PATH_CLI_MULTISPECIES if launches_s[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by cli.workflow "
+                                 f"multispecies: {missing}")
+        out["multispecies"] = {"seconds": sec, "summary": log.summary(),
+                               "launches": launches_s, "n_cells": n_found,
+                               "matched": matched,
+                               "accuracy": correct / max(matched, 1)}
+
+        # (d) (a) again: every stage's outputs are fresh
+        plane_names = {f"run_enc_{enc}_{laser}.npy"
+                       for enc in WORKFLOW_ENCS for laser in LASERS_10B}
+        artifacts = sorted(os.path.join(fovs_r, f)
+                           for f in os.listdir(fovs_r)
+                           if f not in plane_names)
+        mtimes = [os.path.getmtime(a) for a in artifacts]
+        log, sec, launches_d = _workflow_run(
+            torch, kernels, config_r, "ecoli", "(d) ecoli R again")
+        reran = {e["stage"] for e in log.events} & {"measure", "classify"}
+        if (reran or any(launches_d.values())
+                or [os.path.getmtime(a) for a in artifacts] != mtimes):
+            raise AssertionError(f"cli.workflow re-ran fresh stages: "
+                                 f"{reran}, launches {launches_d}")
+        out["ecoli R again"] = {"seconds": sec, "summary": log.summary(),
+                                "artifacts_unchanged": len(artifacts)}
+        written = sum(os.lstat(os.path.join(d, f)).st_size
+                      for d, _, files in os.walk(tmp) for f in files
+                      if not os.path.islink(os.path.join(d, f)))
+        out["bytes_written"] = written
+        print(f"phase 18 (d) second run {sec:.2f} s: no stage re-ran, no "
+              f"kernel launched, {len(artifacts)} artifacts unchanged")
+    out["seconds"] = time.time() - t_phase
+    print(f"phase 18: {out['seconds']:.1f} s, {written} bytes written")
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1750,6 +1992,7 @@ def _smooth_image(shape, seed: int):
 
 
 def main() -> int:
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -2298,7 +2541,8 @@ def main() -> int:
     # 14. the four command lines at full size
     del estack, hres
     torch.cuda.empty_cache()
-    clis = _cli_phase(torch, kernels, FIXTURE_10B, FIXTURE)
+    planes = tempfile.TemporaryDirectory()
+    clis = _cli_phase(torch, kernels, FIXTURE_10B, FIXTURE, planes.name)
 
     # 15. the biofilm engine, cli.biofilm -d 2 and -z
     torch.cuda.empty_cache()
@@ -2382,6 +2626,11 @@ def main() -> int:
     # (c) cli.train at the reference's defaults
     train_c = _train_cli_phase(torch, dev)
 
+    # 18. cli.workflow: measure -> classify -> collect in one process
+    torch.cuda.empty_cache()
+    wf = _workflow_phase(torch, kernels, FIXTURE_10B, FIXTURE, planes.name)
+    planes.cleanup()
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -2396,7 +2645,13 @@ def main() -> int:
                                   PATH_BIOFILM),
                "cli.biofilm -d 3": (vol_c["launches"], PATH_BIOFILM_3D),
                "fov_step, port-trained": (launches17, PATH_2D),
-               "fov_step_ecoli, port-trained": (launches17e, PATH_ECOLI)}
+               "fov_step_ecoli, port-trained": (launches17e, PATH_ECOLI),
+               "cli.workflow ecoli": (
+                   {k: wf["ecoli R"]["launches"][k]
+                    + wf["ecoli M"]["launches"][k]
+                    for k in wf["ecoli R"]["launches"]}, PATH_CLI_MEASURE),
+               "cli.workflow multispecies": (
+                   wf["multispecies"]["launches"], PATH_CLI_MULTISPECIES)}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -2407,6 +2662,7 @@ def main() -> int:
             "launches_by_path": {name: c[k] * (k in p)
                                  for name, (c, p) in by_path.items()},
             **report[key]})
+    print(f"chip_smoke total {time.time() - t_start:.1f} s")
     # the card's line again beside the results (the first one may be far
     # above them in a long output)
     print(_card_line())
@@ -2416,7 +2672,8 @@ def main() -> int:
                                  "cli.biofilm -d 3": vol_c},
                       "training": {"cpu vs card": train_a,
                                    "recipes": train_b,
-                                   "cli.train": train_c}}))
+                                   "cli.train": train_c},
+                      "workflow": wf}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,15 @@ python -m hiprfish_tpu_torch.cli.measure_multispecies (7-bit measurement)
 python -m hiprfish_tpu_torch.cli.classify_spectra     (7-bit classification)
 python -m hiprfish_tpu_torch.cli.biofilm              (biofilm 2D, z-slice, 3D)
 python -m hiprfish_tpu_torch.cli.train                (classifier training)
+python -m hiprfish_tpu_torch.cli.workflow             (measure -> classify ->
+                                                       collect over a table)
+
+and, with no device work and no --device flag:
+
+python -m hiprfish_tpu_torch.cli.collect              (error rates, abundance)
+python -m hiprfish_tpu_torch.cli.summarize_mix        (abundance figures)
+python -m hiprfish_tpu_torch.cli.summarize_titration  (titration regression)
+python -m hiprfish_tpu_torch.cli.analyze_multispecies (per-taxon error rates)
 """
 
 import torch

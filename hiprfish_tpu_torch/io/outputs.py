@@ -53,6 +53,10 @@ def cells_as_text(values) -> np.ndarray:
     text = arr.astype(str)
     if arr.dtype.kind == "f":
         text[np.isnan(arr)] = ""
+    elif arr.dtype == object:
+        text[np.array([v is None or (isinstance(v, (float, np.floating))
+                                     and v != v) for v in arr.flat],
+                      bool).reshape(arr.shape)] = ""
     return text
 
 

@@ -3,7 +3,8 @@ it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
 and measurement; the command lines, biofilm -d 2, -z and -d 3 and the
 trainer among them) in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
 (sys.modules[...] = None). The command lines run with pandas, matplotlib and imageio blocked
-too, which the GPU machine does not have."""
+too, which the GPU machine does not have; the collectors and the workflow
+driver as well, and a figure call then raises ImportError."""
 
 import os
 import subprocess
@@ -232,6 +233,68 @@ print("cells", *(len(load_classifier("ref/" + n).codebook) for n in names))
 """
 
 
+SCRIPT_COLLECT = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import json
+import os
+import numpy as np
+from hiprfish_tpu_torch.config import TEN_BIT
+from hiprfish_tpu_torch.utils import synthetic
+from hiprfish_tpu_torch.cli import collect, workflow
+from hiprfish_tpu_torch.pipeline import summarize
+os.chdir(sys.argv[2])
+os.makedirs("data/fovs")
+os.makedirs("data/ref")
+os.symlink(sys.argv[1], "data/ref/reference_simulate_200_excitation_adjusted"
+           "_normalized_violet_derivative_umap_transform.npz")
+with open("images_table.csv", "w") as f:
+    f.write("SAMPLE,IMAGES,CALIBRATION,CALIBRATION_FILENAME,"
+            "REFERENCE_FOLDER,SPC\n")
+    for enc in (5, 37):
+        fov = synthetic.make_fov(TEN_BIT, [enc] * 4, shape=(128, 128),
+                                 seed=enc, laser_shifts=synthetic.ECOLI_SHIFTS,
+                                 cell_axes=synthetic.ECOLI_CELL_AXES)
+        for laser, plane in zip(TEN_BIT.lasers, fov["stack"]):
+            np.save(f"data/fovs/w_enc_{enc}_{laser}.npy", plane)
+        f.write(f"fovs,w_enc_{enc},F,none,ref,200\n")
+with open("config.json", "w") as f:
+    json.dump({"__default__": {"DATA_DIR": "data"},
+               "images": {"image_list_table": "images_table.csv",
+                          "image_type": "R"}}, f)
+log = workflow.main(["config.json", "--max_cells", "64", "--device", "cpu"])
+assert log.summary()["classify"]["count"] == 2
+results = open("images_table_results.csv").read().splitlines()
+collect.main(["data", "images_table.csv", "again_results.csv", "-t", "R"])
+assert open("again_results.csv").read().splitlines() == results
+os.rename("data/fovs/w_enc_5_cell_ids.txt", "data/fovs/mix_1_fov_1_cell_ids.txt")
+os.rename("data/fovs/w_enc_37_cell_ids.txt", "data/fovs/mix_1_fov_2_cell_ids.txt")
+with open("images_table_mix_1.csv", "w") as f:
+    f.write("SAMPLE,IMAGES\nfovs,mix_1_fov_1\nfovs,mix_1_fov_2\n")
+collect.main(["data", "images_table_mix_1.csv",
+              "images_table_mix_1_results.csv", "-t", "M"])
+with open("images_table_mix_1.csv", "w") as f:
+    f.write("Barcodes,InputConcentration\n5,1.0\n37,2.0\n96,0.0\n")
+res = summarize.titration_correlation("images_table_mix_*_results_abundance.csv")
+try:
+    summarize.plot_mean_abundance_barcodes(
+        "images_table_mix_1_results_abundance.csv", "a.pdf")
+    raise AssertionError("a figure without matplotlib")
+except ImportError:
+    pass
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+counts = [int(float(v)) for v in
+          open("images_table_mix_1_results_abundance.csv").read()
+          .splitlines()[5].split(",")[1:]]
+print("cells", *[r.split(",")[6] for r in results[1:]], *counts,
+      res["gross_error_rate"])
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -269,6 +332,16 @@ def test_port_biofilm_3d_cli_runs_without_jax_pandas_matplotlib(tmp_path):
     out = _run(SCRIPT_BIOFILM_3D, "torch_port_clf_7b_127x50.npz",
                str(tmp_path))
     assert int(out[0]) == 9
+
+
+def test_port_collect_and_workflow_run_without_jax_pandas_matplotlib(
+        tmp_path):
+    # cli.workflow on two 128^2 reference FOVs of four cells each, then
+    # cli.collect -t R and -t M and titration_correlation on its calls;
+    # barcode 5 (row 5 of the abundance table) holds FOV 1's four cells
+    out = _run(SCRIPT_COLLECT, "torch_port_clf_10b_1023x200.npz",
+               str(tmp_path))
+    assert out == ["4", "4", "4", "0", "0.0"]
 
 
 def test_port_trainer_runs_without_jax_pandas_matplotlib(tmp_path):
