@@ -88,7 +88,8 @@ non-zero and prints no result:
      reach 399 and 389 matched cells at accuracy 1.0, the JAX engines'
      counts on these FOVs, with the same artifacts in both calls; print
      each call's wall seconds and each measure call's peak device memory.
-     The planes and truth labels are kept (moved, not copied) for 18;
+     The planes, truth labels and measured spectra are kept (moved, not
+     copied) for 18-20;
  15. the biofilm paths (B1 and B2 on the card): (a) segment_lpcv(...,
      "biofilm") at bkg_min_size=200, epithelial_disk_radius=6 on the CPU
      (plain versions) and on the card, on the 192^2 seed-5 FOV (equal
@@ -201,6 +202,29 @@ non-zero and prints no result:
      16a's 96 x 64 x 32 volume as .npy and as Gray32Float .czi z-stacks:
      byte-identical artifacts, B6, B3 and B4 launched. The phase prints
      its seconds and bytes (at most 6 GB).
+ 20. the reference's legacy UMAP classifier stacks (models/umap_infer.py;
+     no kernel of their own: every count must stay 0): (a) a 10-bit stack
+     at the reference's training width (utils/legacy_stacks.reference_stack:
+     1023 codes x 2000 = 2,046,000 rows x 132, the check SVCs scored on
+     those rows first, >= 0.99 each) written in joblib's format, then
+     cli.classify -rf <name>_umap_transform.pkl on phase 14's 10-bit
+     _avgint.csv twice (cold, warm): >= 380 matched cells at accuracy >=
+     0.99 read back from _cell_ids.txt with _seg.npy, the same artifacts
+     in both calls, each call's stage seconds (load, check SVCs, distance
+     and top-k, weights, epochs, SVC, write) and peak device memory; (b)
+     the same for a 7-bit stack (127 x 2000 = 254,000 rows x 67, with its
+     StandardScaler) through cli.classify_spectra -r
+     <name>_umap_transform_biofilm_7b.pkl on phase 14's _avgint_norm.csv,
+     read back from _cell_information.csv; (c) a 20,460-row 10-bit stack
+     of the same recipe on the CPU and on the card over phase 14's
+     measured cells with the same negative draws: equal check bits,
+     neighbours and calls, distances within 2e-6, embeddings within 1e-4,
+     the embedded SVC's decisions on one embedding within 1e-5; (d) the
+     committed real-sklearn stacks
+     (tests/fixtures/legacy_stacks/, tools/make_torch_legacy_fixture.py):
+     sklearn's stored predictions exactly, predict_proba within 5e-3, the
+     held-out codes at >= 0.99. The phase prints its seconds and bytes (at
+     most 60 s and 2 GB).
 
 At the end the script's total seconds and the card's line are printed,
 then a JSON object with one entry per kernel (its launches on each path,
@@ -350,6 +374,15 @@ READER_SCALE = 1.25
 READER_SEEDS = (2, 3)
 READER_MAX_BYTES = 6e9
 READER_MAX_SECONDS = 90.0
+# phase 20: the legacy UMAP stacks at the reference's training width
+# (simulations per code of its trainer's default), (c)'s small stack, the
+# committed real-sklearn stacks, and the phase's disk and time budgets
+# (phases 1-19 write ~41.8 GB of the machine's 45 GiB)
+LEGACY_SPC = 2000
+LEGACY_SMALL_SPC = 20
+LEGACY_FIXTURES = os.path.join(os.path.dirname(FIXTURE), "legacy_stacks")
+LEGACY_MAX_BYTES = 2e9
+LEGACY_MAX_SECONDS = 60.0
 # the order of the kernels line: B3 once per column set, B4 once per shape
 REPORT_ORDER = ("nlm", "lpcv2d", "label_stats[counts]", "label_stats[aux41]",
                 "label_stats[cube7b]", "label_stats[cols10b]",
@@ -843,8 +876,8 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str,
                keep: str) -> dict:
     """Phase 14: the four command lines on the 2000^2 FOVs, in a temporary
     directory that is removed afterwards. The FOVs' planes and truth
-    labels are moved into ``keep`` for phases 18 and 19 (no second
-    write), with each warm call's _seg.npy and calls."""
+    labels are moved into ``keep`` for phases 18 to 20 (no second
+    write), with each warm call's _seg.npy, calls and measured spectra."""
     from hiprfish_tpu_torch.cli import classify as cli_classify
     from hiprfish_tpu_torch.cli import classify_spectra as cli_spectra
     from hiprfish_tpu_torch.cli import measure as cli_measure
@@ -902,10 +935,12 @@ def _cli_phase(torch, kernels, fixture_10b: str, fixture_7b: str,
                              "accuracy": acc, "seconds": seconds,
                              "peak_gib": peaks, "launches": launches}
                 # the planes for 18 and 19, the warm call's labels and
-                # calls for 19 (a)
+                # calls for 19 (a), the measured spectra for 20
                 calls = (f"{sample}_cell_information.csv" if table
                          else f"{sample}_cell_ids.txt")
-                for fname in [*names, f"{sample}_seg.npy", calls]:
+                spectra = (f"{sample}_avgint_norm.csv" if table
+                           else f"{sample}_avgint.csv")
+                for fname in [*names, f"{sample}_seg.npy", calls, spectra]:
                     os.rename(fname, os.path.join(keep, fname))
                 np.save(os.path.join(keep, f"{sample}_truth.npy"), truth)
                 for fname in os.listdir("."):
@@ -2344,6 +2379,231 @@ def _reader_phase(torch, kernels, fixture_10b: str, fixture_7b: str,
     return out
 
 
+def _legacy_phase(torch, kernels, planes: str, dev) -> dict:
+    """Phase 20: the reference's legacy UMAP stacks on the card, in a
+    temporary directory that is removed afterwards; ``planes`` holds phase
+    14's measured files, truth labels and warm-call artifacts."""
+    import shutil
+
+    from hiprfish_tpu_torch.cli import classify as cli_classify
+    from hiprfish_tpu_torch.cli import classify_spectra as cli_spectra
+    from hiprfish_tpu_torch.config import SEVEN_BIT, TEN_BIT
+    from hiprfish_tpu_torch.models import umap_infer
+    from hiprfish_tpu_torch.models.artifacts import TorchRbfSvc
+    from hiprfish_tpu_torch.pipeline import classify as pclassify
+    from hiprfish_tpu_torch.utils import legacy_stacks, synthetic
+
+    t_phase = time.time()
+    out, written = {}, 0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            runs = (
+                ("10b", TEN_BIT, "ecoli_enc_5", "_avgint.csv",
+                 synthetic.ECOLI_CODES, False, cli_classify.main,
+                 lambda f, t: [f, "-rf", t], "classify_ecoli_legacy"),
+                ("7b", SEVEN_BIT, "flagship", "_avgint_norm.csv",
+                 synthetic.FLAGSHIP_CODES, True, cli_spectra.main,
+                 lambda f, t: ["-i", f, "-r", t],
+                 "classify_spectra_7b_legacy"))
+            for (tag, layout, sample, suffix, cell_codes, table, main,
+                 argv, entry) in runs:
+                # (a), (b): the stack at the reference's training width
+                t0 = time.time()
+                stack = legacy_stacks.reference_stack(layout, LEGACY_SPC)
+                build_s = time.time() - t0
+                rows, cols = stack.umap._raw_data.shape
+                check_acc, chunk = [], 1 << 19
+                t0 = time.time()
+                for i, (chk, inputs) in enumerate(zip(stack.checks,
+                                                      stack.check_rows)):
+                    svc = TorchRbfSvc.from_pickled(chk, dev)
+                    want = np.repeat(stack.check_bits[:, i], LEGACY_SPC)
+                    good = sum(int((svc.predict(inputs[lo:lo + chunk])
+                                    == want[lo:lo + chunk]).sum())
+                               for lo in range(0, rows, chunk))
+                    check_acc.append(good / rows)
+                check_s = time.time() - t0
+                t0 = time.time()
+                files = legacy_stacks.write_stack(stack, ".", f"ref{tag}")
+                stack_write_s = time.time() - t0
+                written += sum(files.values())
+                transform = next(iter(files))
+                del stack
+                print(f"phase 20 {tag} stack: {rows} x {cols} training rows "
+                      f"(built {build_s:.2f} s), {len(files)} pickles "
+                      f"{sum(files.values())} bytes written in "
+                      f"{stack_write_s:.2f} s; check SVCs on the training "
+                      f"rows {[round(a, 6) for a in check_acc]} "
+                      f"({check_s:.2f} s)")
+                if min(check_acc) < 0.99:
+                    raise AssertionError(f"phase 20 {tag}: a check SVC "
+                                         f"scores below 0.99 on its rows")
+                for name in (sample + suffix, sample + "_seg.npy"):
+                    shutil.copy(os.path.join(planes, name), name)
+                truth = np.load(os.path.join(planes, f"{sample}_truth.npy"))
+                turns, prev = {}, None
+                orig = getattr(pclassify, entry)
+                for turn in ("cold", "warm"):
+                    stages = {}
+                    setattr(pclassify, entry,
+                            lambda *a, **kw: orig(*a, timings=stages, **kw))
+                    kernels.reset_launches()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.time()
+                    try:
+                        main(argv(sample + suffix, transform))
+                    finally:
+                        setattr(pclassify, entry, orig)
+                    torch.cuda.synchronize()
+                    total = time.time() - t0
+                    launches = kernels.launch_counts()
+                    seg, codebook, idx = _artifact_calls(sample, table)
+                    n_found = len(codebook) - 1
+                    correct, matched = _barcode_accuracy(
+                        seg, truth, idx, cell_codes, codebook, layout,
+                        n_found, n_found + 1)
+                    acc = correct / max(matched, 1)
+                    names = ([f"{sample}_cell_information.csv"] if table
+                             else [f"{sample}_cell_ids.txt",
+                                   f"{sample}_avgint_ids.csv",
+                                   f"{sample}_identification.png"])
+                    digests = _digests(names)
+                    turns[turn] = {
+                        "n_cells": n_found, "matched": matched,
+                        "accuracy": acc, "total_s": total,
+                        "stages_s": stages, "launches": launches,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2**30}
+                    print(f"phase 20 {tag} cli {turn}: n_cells {n_found}, "
+                          f"matched {matched}, accuracy {acc:.4f} "
+                          f"({correct}/{matched}) from the artifacts; "
+                          f"{total:.2f} s (" + ", ".join(
+                              f"{k} {v:.3f}" for k, v in stages.items())
+                          + f"); peak {turns[turn]['peak_gib']:.3f} GiB; "
+                          f"launches {launches}")
+                    if matched < 380 or acc < 0.99:
+                        raise AssertionError(
+                            f"phase 20 {tag}: {correct}/{matched} matched "
+                            "cells correct, expected >= 0.99 of >= 380")
+                    if any(launches.values()):
+                        raise AssertionError(f"phase 20 {tag}: a kernel "
+                                             f"launched: {launches}")
+                    if prev is not None and digests != prev:
+                        raise AssertionError(f"phase 20 {tag}: the warm "
+                                             "call wrote other artifacts")
+                    prev = digests
+                out[tag] = {"rows": rows, "columns": cols,
+                            "check_accuracy": check_acc,
+                            "stack_bytes": sum(files.values()),
+                            "build_s": build_s, **turns}
+                for name in os.listdir("."):
+                    os.remove(name)
+            out["c"] = _legacy_cpu_vs_card(torch, dev, planes)
+            written += out["c"]["stack_bytes"]
+            out["d"] = _legacy_fixture(torch, dev)
+        finally:
+            os.chdir(cwd)
+    out["seconds"] = time.time() - t_phase
+    out["bytes_written"] = written
+    print(f"phase 20: {out['seconds']:.1f} s, {written} bytes written")
+    if written > LEGACY_MAX_BYTES or out["seconds"] > LEGACY_MAX_SECONDS:
+        raise AssertionError("phase 20: past its time or disk budget")
+    return out
+
+
+def _legacy_cpu_vs_card(torch, dev, planes: str) -> dict:
+    """Phase 20 (c): the small 10-bit synthetic stack of the CPU tests on
+    the CPU and on the card, on phase 14's measured 10-bit features, with
+    the same negative draws."""
+    from hiprfish_tpu_torch.config import TEN_BIT
+    from hiprfish_tpu_torch.io import outputs
+    from hiprfish_tpu_torch.models import umap_infer
+    from hiprfish_tpu_torch.utils import legacy_stacks
+
+    stack = legacy_stacks.reference_stack(TEN_BIT, LEGACY_SMALL_SPC)
+    files = legacy_stacks.write_stack(stack, ".", "small")
+    path = next(iter(files))
+    avg = outputs.read_spectra_csv(os.path.join(planes,
+                                                "ecoli_enc_5_avgint.csv"))
+    norm = avg / np.maximum(avg.max(axis=1, keepdims=True), 1e-12)
+    feats = np.concatenate([norm, np.zeros((len(norm), 37))], axis=1)
+    feats[:, 95:126] = np.diff(feats[:, :32], axis=1)
+    card = umap_infer.load_legacy_umap_stack(path, device=dev)
+    cpu = umap_infer.load_legacy_umap_stack(path, device="cpu")
+    n_train = card.umap.raw_data.shape[0]
+    negs = torch.randint(0, n_train, (30, len(feats), 5),
+                         generator=torch.Generator().manual_seed(0))
+    res = {}
+    for name, s, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+        codes, x = s.predict(feats, negatives=negs, return_checks=True)
+        emb, idx, dist = umap_infer.transform_full(
+            s.umap, x, s.distance_fn, negatives=negs, device=d)
+        res[name] = (codes, x, emb.cpu(), idx.cpu(), dist.cpu())
+    c, g = res["cpu"], res["card"]
+    # the embedded SVC on the same (the CPU's) embedding
+    dec = [s.svc_embed.decision_function_ovo(c[2]).cpu() for s in (cpu,
+                                                                  card)]
+    out = {"rows": n_train, "queries": len(feats),
+           "stack_bytes": sum(files.values()),
+           "checks_equal": bool(np.array_equal(c[1], g[1])),
+           "calls_equal": bool(np.array_equal(c[0], g[0])),
+           "neighbours_equal": bool(torch.equal(c[3], g[3])),
+           "distance_err": float((c[4] - g[4]).abs().max()),
+           "embedding_err": float((c[2] - g[2]).abs().max()),
+           "decision_err": float((dec[0] - dec[1]).abs().max())}
+    print(f"phase 20 (c) {n_train}-row 10-bit stack, {len(feats)} measured "
+          f"cells, cpu vs card: {out}")
+    if not (out["checks_equal"] and out["calls_equal"]
+            and out["neighbours_equal"]) or out["distance_err"] > 2e-6 \
+            or out["embedding_err"] > 1e-4 or out["decision_err"] > 1e-5:
+        raise AssertionError("phase 20 (c): the card disagrees with the CPU")
+    return out
+
+
+def _legacy_fixture(torch, dev) -> dict:
+    """Phase 20 (d): the committed real-sklearn stacks
+    (tools/make_torch_legacy_fixture.py) scored on the card without
+    sklearn: sklearn's stored predictions exactly, predict_proba within
+    5e-3, the held-out codes."""
+    from hiprfish_tpu_torch.models import umap_infer
+
+    t0 = time.time()
+    answers = np.load(os.path.join(LEGACY_FIXTURES, "answers.npz"))
+    out = {}
+    for tag, name, load in (
+            ("10b", "ref10_umap_transform.pkl",
+             umap_infer.load_legacy_umap_stack),
+            ("7b", "ref7_umap_transform_biofilm_7b.pkl",
+             umap_infer.load_legacy_umap_stack_7b)):
+        stack = load(os.path.join(LEGACY_FIXTURES, name), device=dev)
+        q = answers[f"queries_{tag}"]
+        xs = stack.check_inputs(torch.from_numpy(q).to(dev))
+        checks_equal = all(
+            np.array_equal(svc.predict(xs[:, lo:hi]),
+                           answers[f"check_pred_{tag}"][i])
+            for i, (svc, (lo, hi)) in enumerate(zip(stack.check_svcs,
+                                                    stack.blocks)))
+        pts = answers[f"embed_points_{tag}"]
+        embed_equal = bool(np.array_equal(
+            stack.svc_embed.predict(pts).astype(str),
+            answers[f"embed_pred_{tag}"]))
+        proba_err = float(np.abs(stack.svc_embed.predict_proba(pts)
+                                 - answers[f"embed_proba_{tag}"]).max())
+        acc = float(np.mean(np.asarray(stack.predict(q)).astype(str)
+                            == answers[f"labels_{tag}"]))
+        out[tag] = {"checks_equal": checks_equal, "embed_equal": embed_equal,
+                    "proba_err": proba_err, "held_out_accuracy": acc}
+        print(f"phase 20 (d) {tag} real-sklearn stack: {out[tag]}")
+        if not (checks_equal and embed_equal) or proba_err > 5e-3 \
+                or acc < 0.99:
+            raise AssertionError(f"phase 20 (d) {tag}: not sklearn's "
+                                 "answers")
+    out["seconds"] = time.time() - t0
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3003,6 +3263,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     readers = _reader_phase(torch, kernels, FIXTURE_10B, FIXTURE,
                             planes.name, launches, dev)
+
+    # 20. the reference's legacy UMAP stacks
+    torch.cuda.empty_cache()
+    legacy = _legacy_phase(torch, kernels, planes.name, dev)
     planes.cleanup()
 
     by_path = {"fov_step": (launches, PATH_2D),
@@ -3032,7 +3296,11 @@ def main() -> int:
                                     PATH_CLI_MEASURE),
                "run_batch_pipeline": (readers["c"]["launches"], PATH_2D),
                "cli.biofilm -d 3, czi": (readers["d"]["launches"],
-                                         PATH_BIOFILM_3D)}
+                                         PATH_BIOFILM_3D),
+               "cli.classify, legacy stack": (
+                   legacy["10b"]["cold"]["launches"], ()),
+               "cli.classify_spectra, legacy stack": (
+                   legacy["7b"]["cold"]["launches"], ())}
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -3054,7 +3322,8 @@ def main() -> int:
                       "training": {"cpu vs card": train_a,
                                    "recipes": train_b,
                                    "cli.train": train_c},
-                      "workflow": wf, "readers": readers}))
+                      "workflow": wf, "readers": readers,
+                      "legacy": legacy}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

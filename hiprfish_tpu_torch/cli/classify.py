@@ -1,8 +1,8 @@
 """E. coli spectral classification CLI, 10-bit / 1023 barcodes (the port
 of hiprfish_tpu/cli/classify.py, same flags, plus --device): positional
 input_spectra (the _avgint.csv), -rf classifier path (.npz, or the .pkl
-name it stands for). The reference's 3-pickle UMAP stack is not ported yet
-(ROADMAP §A.8) and raises.
+name it stands for), or the reference's own 3-pickle UMAP stack
+(``*_umap_transform.pkl`` beside its ``_svc`` and ``_check_svc`` pickles).
 """
 
 from __future__ import annotations
@@ -29,9 +29,11 @@ def main(argv=None):
     print(f"Classifying sample {args.input_spectra}...")
     if args.ref_clf.endswith("transform.pkl") and os.path.exists(
             args.ref_clf):
-        raise NotImplementedError(
-            f"{args.ref_clf}: the reference's 3-pickle UMAP classifier is "
-            "not ported yet (ROADMAP §A.8); pass the .npz artifact")
+        # the reference's own 3-pickle UMAP stack
+        # (image_classification.py:44-46)
+        classify.classify_ecoli_legacy(args.input_spectra, args.ref_clf,
+                                       device=device)
+        return
     clf = load_classifier(resolve_classifier_path(args.ref_clf))
     classify.classify_ecoli(args.input_spectra, clf, device=device)
 

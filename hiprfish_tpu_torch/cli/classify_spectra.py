@@ -1,8 +1,9 @@
 """7-bit spectra classification CLI, synthetic community (the port of
 hiprfish_tpu/cli/classify_spectra.py, same flags, plus --device): -i the
 normalised spectra (_avgint_norm.csv), -r classifier path (.npz, or the
-.pkl name it stands for). The reference's 4-pickle UMAP stack is not
-ported yet (ROADMAP §A.8) and raises.
+.pkl name it stands for), or the reference's own 4-pickle UMAP stack
+(``*_umap_transform_biofilm_7b.pkl`` beside its ``_svc``, ``_check_svc``
+and ``_scaler`` pickles).
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.ref_clf.endswith("transform_biofilm_7b.pkl") and os.path.exists(
             args.ref_clf):
-        raise NotImplementedError(
-            f"{args.ref_clf}: the reference's 4-pickle UMAP classifier is "
-            "not ported yet (ROADMAP §A.8); pass the .npz artifact")
+        # the reference's own 4-pickle stack (classify_spectra.py:56-59)
+        classify.classify_spectra_7b_legacy(args.input_spectra, args.ref_clf,
+                                            device=device)
+        return
     clf = load_classifier(resolve_classifier_path(args.ref_clf))
     classify.classify_spectra_7b(args.input_spectra, clf, device=device)
 

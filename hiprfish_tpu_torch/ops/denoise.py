@@ -42,6 +42,20 @@ def _box_mean(img: torch.Tensor, size: int) -> torch.Tensor:
     return out * np.float32(1.0 / (size * size))
 
 
+def estimate_sigma(image: torch.Tensor, *_args, **_kwargs) -> torch.Tensor:
+    """Robust noise sigma: the median of |row differences| / 0.6745 /
+    sqrt(2), the median of an even count being the mean of its two middle
+    values, as jnp.median's (the reference computes it and never uses the
+    value). The two divisions are one multiply by (1 / 0.6745) x
+    (1 / sqrt(2)) in float32, as XLA folds them."""
+    dx = torch.abs(image[1:, :].float() - image[:-1, :].float()).reshape(-1)
+    v = torch.sort(dx).values
+    n = v.numel()
+    one = np.float32(1.0)
+    scale = (one / np.float32(0.6745)) * (one / np.float32(np.sqrt(2.0)))
+    return (v[(n - 1) // 2] + v[n // 2]) * 0.5 * float(scale)
+
+
 def half_offsets(patch_distance: int):
     """The (dy, dx) > (0, 0) half of the search window, in scan order."""
     pd = patch_distance

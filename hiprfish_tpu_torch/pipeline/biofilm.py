@@ -17,7 +17,6 @@ first CZI's Scaling metadata as the reference does, is not drawn).
 from __future__ import annotations
 
 import glob
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -30,6 +29,7 @@ from hiprfish_tpu_torch.io import outputs
 from hiprfish_tpu_torch.models import classifier
 from hiprfish_tpu_torch.ops import regionprops as rp
 from hiprfish_tpu_torch.pipeline import measure, segment2d
+from hiprfish_tpu_torch.utils.logging import stage_timer
 
 
 class TaxonLookup(NamedTuple):
@@ -175,23 +175,6 @@ def load_planes(sample: str) -> tuple:
             except (ValueError, OSError):
                 pixel_um = None
     return planes, pixel_um
-
-
-def stage_timer(timings, device):
-    """lap(name): add the seconds since the previous lap (or since this
-    call) to ``timings[name]``, after synchronising the card when
-    ``device`` is CUDA; with ``timings`` None it does nothing."""
-    stamp = [time.time()]
-
-    def lap(name):
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.time()
-            timings[name] = timings.get(name, 0.0) + now - stamp[0]
-            stamp[0] = now
-
-    return lap
 
 
 def _feature_columns(feats: np.ndarray, nch: int):

@@ -3,7 +3,8 @@ hiprfish_tpu/utils/logging.py), and a torch.profiler trace context.
 
 Events are JSON lines (timestamp, stage, sample, seconds, extra) to stderr
 and optionally a file; ``stage`` times a pipeline stage and ``summary``
-totals the seconds and counts per stage of a run."""
+totals the seconds and counts per stage of a run; ``stage_timer`` adds
+synchronised stage seconds to a dict."""
 
 from __future__ import annotations
 
@@ -48,6 +49,25 @@ class RunLog:
             k: {"total_s": round(v[0], 3), "count": v[1]}
             for k, v in totals.items()
         }
+
+
+def stage_timer(timings, device):
+    """lap(name): add the seconds since the previous lap (or since this
+    call) to ``timings[name]``, after synchronising the card when
+    ``device`` is CUDA; with ``timings`` None it does nothing."""
+    stamp = [time.time()]
+
+    def lap(name):
+        if timings is not None:
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(device)
+            now = time.time()
+            timings[name] = timings.get(name, 0.0) + now - stamp[0]
+            stamp[0] = now
+
+    return lap
 
 
 @contextlib.contextmanager

@@ -169,6 +169,15 @@ def channel_chunk_cm(spec: VolumeSpec, n_codes: int, z0: int, zc: int,
     return (base + noise * spec.noise).to(dtype)
 
 
+def channel_chunk(spec: VolumeSpec, n_codes: int, z0: int, zc: int,
+                  spectra_lut: torch.Tensor, seed: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """(X, Y, zc, C) voxel-major spectral slab: channel_chunk_cm's values,
+    its noise stream included, permuted."""
+    return channel_chunk_cm(spec, n_codes, z0, zc, spectra_lut, seed,
+                            dtype).permute(2, 3, 1, 0).contiguous()
+
+
 def build_sum_volume(spec: VolumeSpec, n_codes: int, sum_lut, seed: int = 0,
                      z_chunk: int = 32,
                      device=torch.device("cuda")) -> torch.Tensor:

@@ -63,3 +63,14 @@ def test_half_offsets_match_reference_scan_order():
     assert len(offs) == 264
     assert offs[0] == (0, 1) and offs[-1] == (11, 11)
     assert all(o > (0, 0) for o in offs) and offs == sorted(offs)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (8, 9), (7, 9)])
+def test_estimate_sigma_matches_jax(shape):
+    # (256, 256) and (7, 9) give an even count of differences (the median
+    # averages the two middle ones), (8, 9) an odd one
+    rng = np.random.RandomState(sum(shape))
+    img = (0.5 + 0.05 * rng.randn(*shape)).astype(np.float32)
+    want = float(jdn.estimate_sigma(jnp.asarray(img)))
+    got = tdn.estimate_sigma(torch.from_numpy(img))
+    assert got.dtype == torch.float32 and float(got) == want

@@ -181,10 +181,16 @@ def test_unported_inputs_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     (tmp_path / "clf_umap_transform.pkl").write_bytes(b"")
     (tmp_path / "clf_umap_transform_biofilm_7b.pkl").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="§A.8"):
+    # the reference's UMAP pickles take the legacy routes, whose reader
+    # refuses an empty pickle
+    np.savetxt("x_avgint.csv", np.ones((1, 95)), delimiter=",")
+    outputs.save_avgint_norm_csv_with_header("x_avgint_norm.csv",
+                                             np.ones((1, 63), np.float32))
+    np.save("x_seg.npy", np.ones((4, 4), np.int32))
+    with pytest.raises(ValueError, match="clf_umap_transform.pkl: an empty"):
         cli_classify.main(["x_avgint.csv", "-rf", "clf_umap_transform.pkl",
                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="§A.8"):
+    with pytest.raises(ValueError, match="biofilm_7b.pkl: an empty"):
         cli_classify_spectra.main(
             ["-i", "x_avgint_norm.csv", "-r",
              "clf_umap_transform_biofilm_7b.pkl", "--device", "cpu"])

@@ -598,3 +598,53 @@ def test_prefetcher_stages_planes_on_the_card(tmp_path, cuda):
                 want = torch.from_numpy(iio.load_image(f)).to(cuda)
                 assert t.device == cuda and t.dtype == torch.float32
                 assert torch.equal(t, want) and torch.equal(d, want * 2.0)
+
+
+@pytest.mark.cuda
+def test_legacy_stacks_on_the_card(cuda):
+    """The committed real-sklearn stacks (tools/make_torch_legacy_fixture.py)
+    scored on the card, read without sklearn: the SVCs' predictions equal
+    sklearn's stored ones, predict_proba within 5e-3 of sklearn's, the
+    stacks' held-out calls all right, and the card's neighbours and calls
+    equal to the CPU's."""
+    from hiprfish_tpu_torch.models import umap_infer
+
+    stacks = os.path.join(os.path.dirname(__file__), "fixtures",
+                          "legacy_stacks")
+    answers = np.load(os.path.join(stacks, "answers.npz"))
+    for tag, name, load in (
+            ("10b", "ref10_umap_transform.pkl",
+             umap_infer.load_legacy_umap_stack),
+            ("7b", "ref7_umap_transform_biofilm_7b.pkl",
+             umap_infer.load_legacy_umap_stack_7b)):
+        path = os.path.join(stacks, name)
+        card, cpu = load(path, device=cuda), load(path, device="cpu")
+        q = answers[f"queries_{tag}"]
+        xs = card.check_inputs(torch.from_numpy(q).to(cuda))
+        for i, (svc, (lo, hi)) in enumerate(zip(card.check_svcs,
+                                                card.blocks)):
+            np.testing.assert_array_equal(svc.predict(xs[:, lo:hi]),
+                                          answers[f"check_pred_{tag}"][i])
+        pts = answers[f"embed_points_{tag}"]
+        np.testing.assert_array_equal(
+            card.svc_embed.predict(pts).astype(str),
+            answers[f"embed_pred_{tag}"])
+        np.testing.assert_allclose(card.svc_embed.predict_proba(pts),
+                                   answers[f"embed_proba_{tag}"], rtol=0,
+                                   atol=5e-3)
+        np.testing.assert_allclose(
+            card.svc_embed.decision_function_ovo(pts).cpu().numpy(),
+            cpu.svc_embed.decision_function_ovo(pts).numpy(), rtol=0,
+            atol=1e-5)
+        negs = torch.randint(0, card.umap.raw_data.shape[0],
+                             (30, q.shape[0], 5),
+                             generator=torch.Generator().manual_seed(0))
+        calls = [s.predict(q, negatives=negs) for s in (card, cpu)]
+        np.testing.assert_array_equal(calls[0], calls[1])
+        np.testing.assert_array_equal(np.asarray(calls[0]).astype(str),
+                                      answers[f"labels_{tag}"])
+        feats = card.predict(q, negatives=negs, return_checks=True)[1]
+        idx = [umap_infer.transform_full(s.umap, feats, s.distance_fn,
+                                         negatives=negs, device=d)[1].cpu()
+               for s, d in ((card, cuda), (cpu, "cpu"))]
+        assert torch.equal(idx[0], idx[1])

@@ -6,7 +6,9 @@ trainer among them) in a subprocess where any ``import jax`` or ``import hiprfis
 too, which the GPU machine does not have; the collectors and the workflow
 driver as well, and a figure call then raises ImportError. The CZI readers
 and the batch runner run with zstandard, PIL and imagecodecs blocked as
-well (zstd then inflates through the system's libzstd)."""
+well (zstd then inflates through the system's libzstd). The legacy UMAP
+classify routes run with sklearn, joblib, umap, pynndescent and numba
+blocked as well."""
 
 import os
 import subprocess
@@ -343,6 +345,53 @@ print("cells", *(res[k][0] for k in ("s0", "s1")))
 """
 
 
+SCRIPT_LEGACY = r"""
+import sys
+for name in ("pandas", "matplotlib", "imageio", "sklearn", "joblib", "umap",
+             "pynndescent", "numba"):
+    sys.modules[name] = None
+""" + PREAMBLE + r"""
+import os
+import numpy as np
+from hiprfish_tpu_torch.cli import classify, classify_spectra
+from hiprfish_tpu_torch.io import outputs
+stacks = sys.argv[1]
+answers = np.load(os.path.join(stacks, "answers.npz"))
+os.chdir(sys.argv[2])
+calls = []
+for tag in ("10b", "7b"):
+    q = answers[f"queries_{tag}"]
+    seg = np.zeros((8, 8 * len(q)), np.int32)
+    for i in range(len(q)):
+        seg[2:6, 8 * i + 2:8 * i + 6] = i + 1
+    if tag == "10b":
+        np.savetxt("s10_avgint.csv", q[:, :95], delimiter=",")
+        np.save("s10_seg.npy", seg)
+        classify.main(["s10_avgint.csv", "-rf",
+                       os.path.join(stacks, "ref10_umap_transform.pkl"),
+                       "--device", "cpu"])
+        got = open("s10_cell_ids.txt").read().split()
+        for suffix in ("_avgint_ids.csv", "_identification.png"):
+            assert os.path.getsize("s10" + suffix) > 0, suffix
+    else:
+        outputs.save_avgint_norm_csv_with_header("s7_avgint_norm.csv",
+                                                 q[:, :63])
+        np.save("s7_seg.npy", seg)
+        classify_spectra.main([
+            "-i", "s7_avgint_norm.csv", "-r",
+            os.path.join(stacks, "ref7_umap_transform_biofilm_7b.pkl"),
+            "--device", "cpu"])
+        got = [r.split(",")[67] for r in
+               open("s7_cell_information.csv").read().splitlines()]
+    calls.append(float(np.mean(np.array(got) == answers[f"labels_{tag}"])))
+blocked = {"jax", "hiprfish_tpu", "pandas", "matplotlib", "imageio",
+           "sklearn", "joblib", "umap", "pynndescent", "numba"}
+assert not blocked & {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+print("cells", *calls)
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -413,3 +462,11 @@ def test_port_readers_and_batch_run_without_zstandard_pil(tmp_path):
     out = _run(SCRIPT_READERS, "torch_port_clf_7b_127x50.npz", str(tmp_path),
                str(tmp_path / "zplane.czi"), str(tmp_path / "zplane.npy"))
     assert all(int(v) >= 3 for v in out) and len(out) == 2
+
+
+def test_port_legacy_classify_routes_run_without_sklearn_joblib(tmp_path):
+    # both legacy routes on the committed real-sklearn stacks
+    # (tools/make_torch_legacy_fixture.py) with sklearn, joblib, umap,
+    # pynndescent, numba and pandas blocked: the held-out calls
+    out = _run(SCRIPT_LEGACY, "legacy_stacks", str(tmp_path))
+    assert [float(v) for v in out] == [1.0, 1.0]

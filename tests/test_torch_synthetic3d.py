@@ -79,3 +79,26 @@ def test_channel_and_sum_chunks():
     torch.testing.assert_close(vol[:, :, 16:32], s, rtol=0, atol=0)
     inside = t3.truth_chunk(spec, 63, 16, 16, "cpu")[0] > 0
     assert float(s[inside].mean()) > 10 * float(s[~inside].mean())
+
+
+def test_channel_chunk_is_the_channels_major_slab_permuted():
+    spec = t3.VolumeSpec(**SPECS[0])
+    lut = np.stack([synthetic.barcode_spectrum(SEVEN_BIT, c)
+                    for c in range(1, 64)]).astype(np.float32)
+    lut_t = torch.from_numpy(lut)
+    vm = t3.channel_chunk(spec, 63, 8, 4, lut_t, seed=1)
+    assert vm.shape == (180, 180, 4, 63) and vm.is_contiguous()
+    cm = t3.channel_chunk_cm(spec, 63, 8, 4, lut_t, seed=1)
+    assert torch.equal(vm, cm.permute(2, 3, 1, 0))
+    # without noise, the JAX package's voxel-major slab
+    quiet = dict(SPECS[0], noise=0.0)
+    want = np.asarray(j3.channel_chunk(j3.VolumeSpec(**quiet), 63, 8, 4,
+                                       jnp.asarray(lut), j3_key()))
+    got = t3.channel_chunk(t3.VolumeSpec(**quiet), 63, 8, 4, lut_t, seed=1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def j3_key():
+    import jax
+
+    return jax.random.PRNGKey(0)
