@@ -225,6 +225,32 @@ non-zero and prints no result:
      sklearn's stored predictions exactly, predict_proba within 5e-3, the
      held-out codes at >= 0.99. The phase prints its seconds and bytes (at
      most 60 s and 2 GB).
+ 21. the scale-out over torch.distributed (hiprfish_tpu_torch/parallel/,
+     utils/oom.py and the mesh paths of pipeline/segment3d.py): (a) world
+     1 over NCCL in this process, joined through the HIPRFISH_* contract:
+     batched_fov_step over two copies of the 2000^2 7-bit FOV and
+     batched_fov_step_ecoli over two of the 10-bit FOV, each FOV's labels
+     and calls equal to phases 5 and 11's single-FOV steps;
+     lp_cv_enhance_2d_sharded of a 2000^2 image bitwise B2 on the whole
+     image; segment_3d_tiled(mesh=) on 16a's 96 x 64 x 32 volume (four
+     tiles) with the host sweep's labels; measure_volume_zsharded on it
+     against measure_volume_streamed within B5's contract twice over
+     (2^-15 relative); train_check_heads_dp against train_check_heads on
+     4,096 rows (one full batch of the latter, so both take the same step)
+     within 1e-5 after 20 steps; (b) the same checks in a world of two
+     spawned ranks sharing the card over gloo (the halo, the tiles and the
+     z-slabs crossing ranks), then run_distributed_pipeline over phase
+     14's 7-bit planes as four samples: labels and calls byte for byte,
+     the spectra CSVs within 2^-14 relative (B3's float sums in two runs),
+     of run_batch_pipeline's in this process; (c) in a spawned process of
+     its own (NCCL, world 1), run_batch_pipeline over the four samples at
+     batch 2, its peak reserved memory measured, then at batch 4 under
+     torch.cuda.set_per_process_memory_fraction of that peak + 512 MiB: an
+     allocator OOM must be taken by the halving (2 x 2) and the artifacts
+     must equal the uncapped run's as in (b). Every path prints its
+     seconds (cold, warm), ms per FOV and launches, and must launch its
+     kernels (B1-B4, B2, B3/B4/B6, B5). Each spawned world is bounded by
+     300 s and its process-group timeout.
 
 At the end the script's total seconds and the card's line are printed,
 then a JSON object with one entry per kernel (its launches on each path,
@@ -2604,6 +2630,480 @@ def _legacy_fixture(torch, dev) -> dict:
     return out
 
 
+# phase 21: the scale-out. The 3D sweep's tiling of 16a's 96 x 64 x 32
+# volume (four tiles, cells narrower than the margin) and phase 7's
+# KMeans iterations; the rows of the data-parallel check head (one batch
+# of train_check_heads, so both take the same full-batch step), its steps
+# and rate; B5's contract twice over (each side's sums within 2^-16 of
+# the exact ones); (c)'s headroom over the batch of two's peak; the
+# process-group timeout and the bound on each spawned world's run
+SCALE_TILED = dict(max_cells=64, tile_x=24, margin=16, tile_cap=64,
+                   bf16=True)
+SCALE_KMEANS = 20
+SCALE_ROWS = 4096
+SCALE_STEPS = 20
+SCALE_LR = 3e-3
+SCALE_TRAIN_TOL = 1e-5
+SCALE_MEASURE_RTOL = 2.0 ** -15
+# two runs' spectra CSVs: each mean's sums within 2^-16 of the exact ones,
+# and the row maximum of the normalised spectra as well
+SCALE_CSV_RTOL = 2.0 ** -14
+OOM_MARGIN = 512 * 2**20
+SCALE_TIMEOUT_S = 300
+
+
+def _scale_inputs(torch, kernels, dev, refs: dict, tmp: str) -> dict:
+    """Phase 21's inputs and one-card references, written to ``tmp`` for
+    the spawned ranks: phases 5 and 11's labels and calls, B2 on the whole
+    2000^2 image, the host sweep of 16a's volume and its streamed
+    measurement (B5), and train_check_heads on SCALE_ROWS rows."""
+    from hiprfish_tpu_torch.config import SegmentationConfig
+    from hiprfish_tpu_torch.models import classifier
+    from hiprfish_tpu_torch.pipeline import segment3d
+
+    img = _smooth_image((2000, 2000), 21)
+    lpcv = kernels.lpcv2d(torch.from_numpy(img).to(dev), 11, 9).cpu().numpy()
+    cube = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64], (96, 64, 32))
+    vol_sum = cube.sum(axis=3)
+    cube_cm = np.ascontiguousarray(cube.transpose(3, 2, 0, 1))
+    del cube
+    seg3d, n3d, _ = segment3d.segment_3d_tiled(
+        torch.from_numpy(vol_sum).to(dev),
+        SegmentationConfig(kmeans_iters=SCALE_KMEANS), **SCALE_TILED)
+    cm_dev = torch.from_numpy(cube_cm).to(dev)
+    spectra = segment3d.measure_volume_streamed(
+        seg3d, lambda z0, zc: cm_dev[:, z0:z0 + zc], vol_sum.shape[2], 8,
+        cube_cm.shape[0], SCALE_TILED["max_cells"], channels_major=True)
+    rng = np.random.RandomState(21)
+    x = rng.rand(SCALE_ROWS, 23).astype(np.float32)
+    y = (x.mean(1) > 0.5).astype(np.float32)
+    init = {"w1": (rng.randn(23, 32) * np.sqrt(2.0 / 23)).astype(np.float32),
+            "b1": np.zeros(32, np.float32),
+            "w2": (rng.randn(32, 1) * np.sqrt(1.0 / 32)).astype(np.float32),
+            "b2": np.zeros(1, np.float32)}
+    one = classifier.train_check_heads(
+        torch.from_numpy(x).to(dev)[None], torch.from_numpy(y).to(dev)[None],
+        {k: torch.from_numpy(v).to(dev)[None] for k, v in init.items()},
+        torch.arange(SCALE_ROWS, device=dev)[None], SCALE_STEPS, SCALE_LR)
+    out = dict(img=img, lpcv=lpcv, vol_sum=vol_sum, cube_cm=cube_cm,
+               seg3d=seg3d.cpu().numpy(), n3d=np.int64(n3d),
+               spectra=spectra.cpu().numpy(), x=x, y=y,
+               **{f"init_{k}": v for k, v in init.items()},
+               **{f"one_{k}": v[0].cpu().numpy() for k, v in one.items()},
+               **refs)
+    np.savez(os.path.join(tmp, "inputs.npz"), **out)
+    return out
+
+
+def _scale_checks(torch, kernels, mesh_f, mesh_t, planes: str,
+                  inp: dict, copies: int = 2) -> dict:
+    """Phase 21's checks on one rank of a world: the 'fov' mesh mesh_f
+    carries the batched steps (over ``copies`` copies of each FOV), the 3D
+    sweep, the z-sharded measurement and the check-head training; the
+    'tile' mesh mesh_t the row-sharded LP-CV. Each path's launches are counted from zero; every equality is
+    held here, so a rank that disagrees fails its world."""
+    import torch.distributed as dist
+
+    from hiprfish_tpu_torch.config import SegmentationConfig
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.parallel import fov_batch, spatial
+    from hiprfish_tpu_torch.parallel import mesh as meshlib
+    from hiprfish_tpu_torch.pipeline import fused, segment3d
+
+    dev = meshlib.mesh_device(mesh_f)
+    cfg = SegmentationConfig()
+    out = {}
+
+    def timed(name, fn, path, n_fovs=None):
+        """fn() twice (cold, warm), each with its launches (counted from
+        zero) and its seconds, the world's ranks starting together; ms per
+        FOV over n_fovs. Returns the cold call's result."""
+        out[name] = {}
+        for turn in ("", " warm"):
+            dist.barrier(group=mesh_f.get_group("fov"))
+            kernels.reset_launches()
+            t0 = time.time()
+            got = fn()
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches = kernels.launch_counts()
+            missing = [k for k in path if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"phase 21 {name}: kernels not "
+                                     f"launched {missing}")
+            out[name].update({"seconds" + turn: seconds,
+                              "launches" + turn: launches})
+            if n_fovs:
+                out[name]["ms_per_fov" + turn] = seconds * 1000 / n_fovs
+            if turn == "":
+                res = got
+            del got
+        return res
+
+    # the batched steps over two copies of each 2000^2 FOV
+    for name, layout_planes, clf_path, path, key in (
+            ("batched_fov_step", [f"flagship_{la}.npy" for la in LASERS_7B],
+             FIXTURE, PATH_2D, "ref5"),
+            ("batched_fov_step_ecoli",
+             [f"ecoli_enc_5_{la}.npy" for la in LASERS_10B], FIXTURE_10B,
+             PATH_ECOLI, "ref11")):
+        planes_np = [np.load(os.path.join(planes, f)) for f in layout_planes]
+        stack = tuple([p] * copies for p in planes_np)
+        arrays, static = fused.classifier_from_numpy(
+            load_classifier(clf_path), dev)
+        make = (fov_batch.batched_fov_step if name == "batched_fov_step"
+                else fov_batch.batched_fov_step_ecoli)
+        run = make(mesh_f, cfg, MAX_CELLS, static)
+        res = timed(name, lambda: run(stack, arrays), path, copies)
+        seg, n_cells, code_idx = ((res.segmentation, res.n_cells,
+                                   res.code_idx) if name == "batched_fov_step"
+                                  else (res[0], res[1], res[3]))
+        n_ref = int(inp[f"{key}_n"])
+        for i in range(copies):
+            n = int(n_cells[i])
+            if n != n_ref or not np.array_equal(
+                    seg[i].cpu().numpy(), inp[f"{key}_seg"]) \
+                    or not np.array_equal(code_idx[i, 1:n + 1].cpu().numpy(),
+                                          inp[f"{key}_codes"]):
+                raise AssertionError(f"phase 21 {name}: FOV {i} differs "
+                                     "from the single-FOV step")
+        del planes_np, stack, res, seg
+        torch.cuda.empty_cache()
+
+    # LP-CV over row shards: bitwise B2 on the whole image
+    got = timed("lp_cv_enhance_2d_sharded", lambda: spatial
+                .lp_cv_enhance_2d_sharded(inp["img"], mesh_t), ("lpcv2d",))
+    if not np.array_equal(got.cpu().numpy(), inp["lpcv"]):
+        raise AssertionError("phase 21 lp_cv_enhance_2d_sharded: not B2's "
+                             "bits on the whole image")
+    # the 3D sweep over the mesh: the host sweep's labels
+    seg3d, n3d, _ = timed(
+        "segment_3d_tiled mesh", lambda: segment3d.segment_3d_tiled(
+            torch.from_numpy(inp["vol_sum"]).to(dev),
+            SegmentationConfig(kmeans_iters=SCALE_KMEANS), mesh=mesh_f,
+            **SCALE_TILED), ("label_stats", "label_lookup", "lpcv3d"))
+    if n3d != int(inp["n3d"]) or not np.array_equal(seg3d.cpu().numpy(),
+                                                    inp["seg3d"]):
+        raise AssertionError("phase 21 segment_3d_tiled(mesh=): labels "
+                             "differ from the host sweep")
+    # z-slabs per rank: measure_volume_streamed's spectra within B5's
+    # contract twice over
+    spectra = timed("measure_volume_zsharded", lambda: segment3d
+                    .measure_volume_zsharded(
+                        inp["seg3d"], inp["cube_cm"], mesh_f, "fov",
+                        SCALE_TILED["max_cells"]), ("stats_cm",)).cpu().numpy()
+    err = float(np.abs(spectra - inp["spectra"]).max())
+    if not np.allclose(spectra, inp["spectra"], rtol=SCALE_MEASURE_RTOL,
+                       atol=1e-6):
+        raise AssertionError(f"phase 21 measure_volume_zsharded: {err} "
+                             "from measure_volume_streamed")
+    out["measure_volume_zsharded"]["max_abs_err"] = err
+    # the data-parallel check head: train_check_heads' full-batch step
+    init = {k: inp[f"init_{k}"] for k in ("w1", "b1", "w2", "b2")}
+    params = timed("train_check_heads_dp", lambda: fov_batch
+                   .train_check_heads_dp(mesh_f, inp["x"], inp["y"], init,
+                                         SCALE_STEPS, SCALE_LR), ())
+    err = max(float(np.abs(params[k] - inp[f"one_{k}"].reshape(
+        params[k].shape)).max()) for k in params)
+    if err > SCALE_TRAIN_TOL:
+        raise AssertionError(f"phase 21 train_check_heads_dp: {err} from "
+                             "train_check_heads")
+    out["train_check_heads_dp"]["max_abs_err"] = err
+    return out
+
+
+def _scale_rank(rank: int, world: int, tmp: str, planes: str) -> None:
+    """One spawned rank of phase 21 (b): join the world over the
+    HIPRFISH_* contract (gloo: the ranks share the card), run the checks,
+    then run_distributed_pipeline over the 7-bit planes as four samples;
+    the results go to tmp/rank<r>.json."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(HIPRFISH_COORDINATOR=f"file://{tmp}/pg_b",
+                      HIPRFISH_NUM_PROCESSES=str(world),
+                      HIPRFISH_PROCESS_ID=str(rank))
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.parallel import distributed
+    from hiprfish_tpu_torch.parallel import mesh as meshlib
+
+    timeout = timedelta(seconds=SCALE_TIMEOUT_S)
+    distributed.initialize_from_env(timeout)
+    if dist.get_backend() != "gloo":
+        raise AssertionError("phase 21 (b): ranks sharing one card must "
+                             f"join over gloo, got {dist.get_backend()}")
+    mesh_f = meshlib.make_mesh(fov=world, tile=1, timeout=timeout)
+    mesh_t = meshlib.make_mesh(fov=1, tile=world, timeout=timeout)
+    inp = dict(np.load(os.path.join(tmp, "inputs.npz")))
+    out = _scale_checks(torch, kernels, mesh_f, mesh_t, planes, inp)
+    files = [os.path.join(planes, f"flagship_{la}.npy") for la in LASERS_7B]
+    samples = [(f"s{i}", files) for i in range(4)]
+    dist.barrier()
+    kernels.reset_launches()
+    t0 = time.time()
+    got = distributed.run_distributed_pipeline(
+        samples, load_classifier(FIXTURE), out_dir=os.path.join(tmp, "b"))
+    torch.cuda.synchronize()
+    out["run_distributed_pipeline"] = {
+        "seconds": time.time() - t0, "launches": kernels.launch_counts(),
+        "samples": list(got)}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _oom_rank(tmp: str, planes: str) -> None:
+    """Phase 21 (c) in a spawned process of its own: the 7-bit planes as
+    four samples through run_batch_pipeline on a (1, 1) mesh (NCCL, world
+    1): uncapped at batch 2 (its peak reserved memory measured), then at
+    batch 4 under a per-process memory fraction of that peak plus
+    OOM_MARGIN. The results go to tmp/oom.json."""
+    import logging
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(HIPRFISH_COORDINATOR=f"file://{tmp}/pg_c",
+                      HIPRFISH_NUM_PROCESSES="1", HIPRFISH_PROCESS_ID="0")
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.parallel import distributed, fov_batch
+    from hiprfish_tpu_torch.parallel import mesh as meshlib
+    from hiprfish_tpu_torch.utils import oom
+
+    timeout = timedelta(seconds=SCALE_TIMEOUT_S)
+    distributed.initialize_from_env(timeout)
+    mesh = meshlib.make_mesh(fov=1, tile=1, timeout=timeout)
+    files = [os.path.join(planes, f"flagship_{la}.npy") for la in LASERS_7B]
+    samples = [(f"c{i}", files) for i in range(4)]
+    clf = load_classifier(FIXTURE)
+    out = {"backend": dist.get_backend()}
+
+    def run(batch, name, fovs):
+        os.makedirs(os.path.join(tmp, name))
+        kernels.reset_launches()
+        t0 = time.time()
+        fov_batch.run_batch_pipeline(fovs, clf, batch=batch, mesh=mesh,
+                                     out_dir=os.path.join(tmp, name))
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.time() - t0,
+                     "ms_per_fov": (time.time() - t0) * 1000 / len(fovs),
+                     "launches": kernels.launch_counts()}
+
+    run(1, "warm", samples[:1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run(2, "uncapped", samples)
+    peak = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction((peak + OOM_MARGIN) / total)
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: warnings.append(rec.getMessage())
+    oom.log.addHandler(handler)
+    run(4, "capped", samples)
+    oom.log.removeHandler(handler)
+    out.update(peak_batch2=peak, cap=peak + OOM_MARGIN, total=total,
+               splits=warnings)
+    with open(os.path.join(tmp, "oom.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _spawn(targets) -> None:
+    """Run each (function, args) in a spawned process, all at once; fail
+    if one fails or outlives SCALE_TIMEOUT_S, and leave none running."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
+    for p in procs:
+        p.start()
+    deadline = time.time() + SCALE_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.time(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"phase 21: spawned processes ended {codes}")
+
+
+def _rows_close(u: str, v: str) -> bool:
+    """Two CSV rows of numbers within SCALE_CSV_RTOL."""
+    try:
+        return bool(np.allclose(np.array(u.split(","), float),
+                                np.array(v.split(","), float),
+                                rtol=SCALE_CSV_RTOL, atol=0))
+    except ValueError:
+        return False
+
+
+def _artifacts_differ(a: str, b: str) -> list:
+    """The artifact names of directory ``a`` that ``b`` lacks or holds
+    otherwise: labels and calls byte for byte, the spectra CSVs (whose
+    sums are B3's float atomics, within 2^-16 relative in every run) within
+    SCALE_CSV_RTOL."""
+    bad = []
+    for name in sorted(os.listdir(a)):
+        pb = os.path.join(b, name)
+        if not os.path.exists(pb):
+            bad.append(name)
+            continue
+        with open(os.path.join(a, name), "rb") as f:
+            want = f.read()
+        with open(pb, "rb") as f:
+            got = f.read()
+        if name.endswith(".csv"):
+            lines = [t.decode().splitlines() for t in (want, got)]
+            same = len(lines[0]) == len(lines[1]) and all(
+                u == v or _rows_close(u, v) for u, v in zip(*lines))
+        else:
+            same = got == want
+        if not same:
+            bad.append(name)
+    return bad
+
+
+def _scaleout_phase(torch, kernels, planes: str, refs: dict, dev) -> dict:
+    """Phase 21: the scale-out over torch.distributed on the card, in a
+    temporary directory that is removed afterwards. ``planes`` holds phase
+    14's planes; ``refs`` phases 5 and 11's labels and calls. (a) world 1
+    over NCCL in this process, (b) world 2 of two spawned ranks sharing the
+    card over gloo, (c) an allocator OOM taken by the batch halving."""
+    import torch.distributed as dist
+
+    from hiprfish_tpu_torch.models.artifacts import load_classifier
+    from hiprfish_tpu_torch.parallel import distributed, fov_batch
+    from hiprfish_tpu_torch.parallel import mesh as meshlib
+
+    t_phase = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = _scale_inputs(torch, kernels, dev, refs, tmp)
+        print(f"phase 21 inputs and one-card references: "
+              f"{time.time() - t_phase:.1f} s")
+        # (a) world 1 over NCCL, through the HIPRFISH_* contract
+        env = {k: os.environ.get(k) for k in (
+            "HIPRFISH_COORDINATOR", "HIPRFISH_NUM_PROCESSES",
+            "HIPRFISH_PROCESS_ID")}
+        os.environ.update(HIPRFISH_COORDINATOR=f"file://{tmp}/pg_a",
+                          HIPRFISH_NUM_PROCESSES="1",
+                          HIPRFISH_PROCESS_ID="0")
+        try:
+            from datetime import timedelta
+
+            timeout = timedelta(seconds=SCALE_TIMEOUT_S)
+            distributed.initialize_from_env(timeout)
+            backend = dist.get_backend()
+            if backend != "nccl":
+                raise AssertionError(f"phase 21 (a): a rank with a card of "
+                                     f"its own must join over NCCL, got "
+                                     f"{backend}")
+            mesh = meshlib.make_mesh(fov=1, tile=1, timeout=timeout)
+            out["world 1"] = _scale_checks(torch, kernels, mesh, mesh,
+                                           planes, inp)
+            dist.destroy_process_group()
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        _print_world("(a) world 1, nccl", out["world 1"])
+        # (b) world 2 on the one card over gloo; the reference artifacts
+        # of run_distributed_pipeline: run_batch_pipeline in this process
+        files = [os.path.join(planes, f"flagship_{la}.npy")
+                 for la in LASERS_7B]
+        for d in ("one", "b"):
+            os.makedirs(os.path.join(tmp, d))
+        fov_batch.run_batch_pipeline([(f"s{i}", files) for i in range(4)],
+                                     load_classifier(FIXTURE),
+                                     out_dir=os.path.join(tmp, "one"))
+        del inp
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        _spawn([(_scale_rank, (r, 2, tmp, planes)) for r in range(2)])
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad = _artifacts_differ(os.path.join(tmp, "one"),
+                                os.path.join(tmp, "b"))
+        if bad or sorted(ranks[0]["run_distributed_pipeline"]["samples"]
+                         + ranks[1]["run_distributed_pipeline"]["samples"]) \
+                != [f"s{i}" for i in range(4)]:
+            raise AssertionError(f"phase 21 (b) run_distributed_pipeline: "
+                                 f"artifacts differ {bad}")
+        world2 = {}
+        for name in ranks[0]:
+            world2[name] = {
+                "seconds": max(r[name]["seconds"] for r in ranks),
+                "launches": {k: sum(r[name]["launches"][k] for r in ranks)
+                             for k in ranks[0][name]["launches"]},
+                "ranks": [r[name] for r in ranks]}
+            for k in ("seconds warm", "ms_per_fov", "ms_per_fov warm"):
+                if k in ranks[0][name]:
+                    world2[name][k] = max(r[name][k] for r in ranks)
+        out["world 2"] = world2
+        out["world 2"]["wall_s"] = time.time() - t0
+        _print_world("(b) world 2 on one card, gloo", world2)
+        # (c) a real allocator OOM, halved
+        t0 = time.time()
+        _spawn([(_oom_rank, (tmp, planes))])
+        with open(os.path.join(tmp, "oom.json")) as f:
+            oom_out = json.load(f)
+        bad = _artifacts_differ(os.path.join(tmp, "uncapped"),
+                          os.path.join(tmp, "capped"))
+        oom_out["wall_s"] = time.time() - t0
+        print(f"phase 21 (c) run_batch_pipeline over a (1, 1) mesh "
+              f"({oom_out['backend']}): batch 2 uncapped "
+              f"{oom_out['uncapped']['ms_per_fov']:.1f} ms/FOV, peak "
+              f"reserved {oom_out['peak_batch2'] / 2**30:.3f} GiB; batch 4 "
+              f"capped at {oom_out['cap'] / 2**30:.3f} of "
+              f"{oom_out['total'] / 2**30:.2f} GiB: "
+              f"{oom_out['capped']['ms_per_fov']:.1f} ms/FOV, splits "
+              f"{oom_out['splits']}, launches "
+              f"{oom_out['capped']['launches']}; artifacts differ {bad}")
+        if bad or not oom_out["splits"]:
+            raise AssertionError("phase 21 (c): no OOM was taken by the "
+                                 "halving, or the artifacts differ")
+        missing = [k for k in PATH_2D
+                   if oom_out["capped"]["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"phase 21 (c): kernels not launched "
+                                 f"{missing}")
+        out["oom"] = oom_out
+    out["seconds"] = time.time() - t_phase
+    print(f"phase 21: {out['seconds']:.1f} s")
+    return out
+
+
+def _print_world(tag: str, res: dict) -> None:
+    """One line per path of a world: seconds (cold and, where timed,
+    warm), ms per FOV, error against the one-card result, launches."""
+    for name, r in res.items():
+        if not isinstance(r, dict):
+            continue
+        extra = ""
+        if "seconds warm" in r:
+            extra = f" cold, {r['seconds warm']:.3f} s warm"
+        if "ms_per_fov" in r:
+            extra += (f"; {r['ms_per_fov']:.1f} ms/FOV cold, "
+                      f"{r['ms_per_fov warm']:.1f} warm")
+        if "max_abs_err" in r:
+            extra += f"; max_abs_err {r['max_abs_err']:.3e}"
+        print(f"phase 21 {tag} {name}: {r['seconds']:.3f} s{extra}; "
+              f"launches {r['launches']}")
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -2839,6 +3339,9 @@ def main() -> int:
     if len(set(n_calls)) != 1:
         raise AssertionError(f"fov_step: n_cells differs between calls "
                              f"{n_calls}")
+    # phase 21's reference: this FOV's labels and calls
+    refs = {"ref5_seg": seg, "ref5_n": np.int64(n_found),
+            "ref5_codes": res.code_idx[1:n_found + 1].cpu().numpy()}
     # the 7-bit FOV's host and device arrays are not used again
     del fov, stack, res, r, seg, labels, flat, cube_flat, stats_args, small, \
         outs, cpu_r, gpu_r
@@ -3087,6 +3590,8 @@ def main() -> int:
     if len(set(en_calls)) != 1:
         raise AssertionError(f"fov_step_ecoli: n_cells differs between "
                              f"calls {en_calls}")
+    refs.update(ref11_seg=eseg, ref11_n=np.int64(en_found),
+                ref11_codes=eres.code_idx[1:en_found + 1].cpu().numpy())
     del eres, er, eseg
 
     # 12. the host engine once at full size
@@ -3267,7 +3772,12 @@ def main() -> int:
     # 20. the reference's legacy UMAP stacks
     torch.cuda.empty_cache()
     legacy = _legacy_phase(torch, kernels, planes.name, dev)
+
+    # 21. the scale-out over torch.distributed
+    torch.cuda.empty_cache()
+    scale = _scaleout_phase(torch, kernels, planes.name, refs, dev)
     planes.cleanup()
+    w1, w2 = scale["world 1"], scale["world 2"]
 
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
@@ -3301,6 +3811,23 @@ def main() -> int:
                    legacy["10b"]["cold"]["launches"], ()),
                "cli.classify_spectra, legacy stack": (
                    legacy["7b"]["cold"]["launches"], ())}
+    for tag, w in (("world 1", w1), ("world 2", w2)):
+        by_path.update({
+            f"batched_fov_step, {tag}": (w["batched_fov_step"]["launches"],
+                                         PATH_2D),
+            f"batched_fov_step_ecoli, {tag}": (
+                w["batched_fov_step_ecoli"]["launches"], PATH_ECOLI),
+            f"lp_cv_enhance_2d_sharded, {tag}": (
+                w["lp_cv_enhance_2d_sharded"]["launches"], ("lpcv2d",)),
+            f"segment_3d_tiled mesh, {tag}": (
+                w["segment_3d_tiled mesh"]["launches"],
+                ("label_stats", "label_lookup", "lpcv3d")),
+            f"measure_volume_zsharded, {tag}": (
+                w["measure_volume_zsharded"]["launches"], ("stats_cm",))})
+    by_path["run_distributed_pipeline, world 2"] = (
+        w2["run_distributed_pipeline"]["launches"], PATH_2D)
+    by_path["run_batch_pipeline, OOM halving"] = (
+        scale["oom"]["capped"]["launches"], PATH_2D)
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -3323,7 +3850,7 @@ def main() -> int:
                                    "recipes": train_b,
                                    "cli.train": train_c},
                       "workflow": wf, "readers": readers,
-                      "legacy": legacy}))
+                      "legacy": legacy, "scale_out": scale}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,10 @@ the summed volume it works in the canonical (X, Z, Y) layout, as the
 reference does: component ids (the minimum linear index), their ranks,
 the KMeans histogram's strided subsample and the union-find's smaller root
 all follow linear order in that layout, so the cell numbering and
-thresholds are the reference's.
+thresholds are the reference's. Over a parallel/mesh DeviceMesh,
+segment_3d_tiled(mesh=) sweeps the tiles over the mesh's 'fov' ranks, and
+measure_volume_zsharded reduces one z-slab per rank (B5) and all-reduces
+the tables.
 
 The untiled engine of one z-stack (cli.biofilm -d 3):
 measure_biofilm_images_3d reads the per-laser stacks, register_volume_stack
@@ -59,10 +62,12 @@ from hiprfish_tpu_torch.ops import register as reg
 from hiprfish_tpu_torch.ops import regionprops as rp
 from hiprfish_tpu_torch.ops import segstats
 from hiprfish_tpu_torch.ops import watershed as ws
+from hiprfish_tpu_torch.parallel import mesh as meshlib
 from hiprfish_tpu_torch.pipeline import biofilm as bf
 from hiprfish_tpu_torch.pipeline import measure as meas
 from hiprfish_tpu_torch.pipeline import segment2d
 from hiprfish_tpu_torch.pipeline.classify import SHAPE_COLUMNS
+from hiprfish_tpu_torch.utils import oom
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +324,9 @@ def _segment_tile_at_seeded(enhanced_p, bkg_p, seeds_p, thr_fg, start: int,
 
 
 def _tiled_segment_pass(boxes, thr_fg, statics, shapes,
-                        log=lambda m: None):
-    """Host loop over the tiles. ``boxes`` is [(enhanced_p, bkg_p,
+                        log=lambda m: None, tiles=None):
+    """Host loop over the tiles (``tiles``, default all; an index past
+    the last tile replays the last). ``boxes`` is [(enhanced_p, bkg_p,
     seeds_p)] in the (x, Z, Y) layout; it is emptied so the padded inputs
     free when the loop ends. Returns (list of (tile_x, Z, Y) label tiles,
     list of (tile_cap,) presence bitmaps, list of (2, Z, Y) boundary
@@ -328,15 +334,35 @@ def _tiled_segment_pass(boxes, thr_fg, statics, shapes,
     tile_x, margin, n_tiles = shapes
     enhanced_p, bkg_p, seeds_p = boxes.pop()
     outs, presents, planes = [], [], []
-    for t in range(n_tiles):
-        o, p, pl = _segment_tile_at_seeded(enhanced_p, bkg_p, seeds_p,
-                                           thr_fg, t * tile_x, statics,
-                                           (tile_x, margin))
+    for t in range(n_tiles) if tiles is None else tiles:
+        o, p, pl = _segment_tile_at_seeded(
+            enhanced_p, bkg_p, seeds_p, thr_fg, min(t, n_tiles - 1) * tile_x,
+            statics, (tile_x, margin))
         outs.append(o)
         presents.append(p)
         planes.append(pl)
         log(f"tile {t + 1}/{n_tiles}")
     return outs, presents, planes
+
+
+def _tiled_segment_pass_mesh(boxes, thr_fg, statics, shapes, mesh,
+                             log=lambda m: None):
+    """_tiled_segment_pass over the mesh's 'fov' ranks: the tile count
+    pads to a multiple of the dim's size by replaying the last slab; each
+    rank sweeps its contiguous block of slabs on its own device (the JAX
+    function's shard_map, P("fov") being block sharding); the tiles,
+    presence bitmaps and boundary planes are all-gathered in tile order
+    and the padding dropped. Every rank gets the host sweep's output
+    contract, so the union-find that follows (whose roots follow the tile
+    order) runs alike on all of them."""
+    n_tiles = shapes[2]
+    n_dev = meshlib.dim_size(mesh, "fov")
+    per = -(-n_tiles // n_dev)
+    lo = mesh.get_local_rank("fov") * per
+    own = _tiled_segment_pass(boxes, thr_fg, statics, shapes, log,
+                              range(lo, lo + per))
+    return tuple(list(meshlib.all_gather_rows(torch.stack(c), mesh)
+                      [:n_tiles]) for c in own)
 
 
 def _boundary_pair_codes(tiles, planes, tile_cap: int) -> list:
@@ -374,7 +400,7 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
                      margin: int = 64, tile_cap: int = 8192,
                      chunk_xy: int = 128, out_layout: str = "xyz",
                      scan_cap: int = 0, bf16: bool | None = None,
-                     log=lambda m: None):
+                     log=lambda m: None, mesh=None):
     """3D segmentation of a channel-summed (X, Y, Z) volume as a
     margin-tiled sweep along x.
 
@@ -388,7 +414,11 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     every structure narrower than ``margin``. ``scan_cap`` caps the tile id
     floods' scan doubling (0 = the margin); it changes the number of
     fixpoint rounds, never the result. ``bf16`` is the 3D LP-CV's sample
-    precision (None: bf16 on CUDA, f32 on the CPU).
+    precision (None: bf16 on CUDA, f32 on the CPU). With ``mesh`` (a
+    parallel/mesh DeviceMesh), every rank calls this with the same volume
+    and the tiles are swept over the mesh's 'fov' ranks
+    (_tiled_segment_pass_mesh); every rank returns the host sweep's
+    labels.
 
     Pass ``vol_sum`` as a one-element list to hand it over (it is popped,
     so it can be freed early). Returns (labels (X, Y, Z) int32, or
@@ -423,8 +453,12 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     del enhanced, bkg, seeds
     statics = (cfg.lp_seed_min_size, cfg.ccl_max_iters,
                cfg.watershed_max_iters, tile_cap, scan_cap)
-    tiles_seg, presents, planes = _tiled_segment_pass(
-        box, thr_fg, statics, (tile_x, margin, n_tiles), log)
+    if mesh is None:
+        tiles_seg, presents, planes = _tiled_segment_pass(
+            box, thr_fg, statics, (tile_x, margin, n_tiles), log)
+    else:
+        tiles_seg, presents, planes = _tiled_segment_pass_mesh(
+            box, thr_fg, statics, (tile_x, margin, n_tiles), mesh, log)
 
     # host union-find; the global id of tile t's local rank r is
     # t * tile_cap + r
@@ -582,22 +616,74 @@ def measure_volume_streamed(seg: torch.Tensor, chunk_loader, z_total: int,
     whose C-channel data arrives in z-slabs from ``chunk_loader(z0, zc)``:
     (C, zc, X, Y) with channels_major (reduced by stats_cm, kernel B5 on
     CUDA), else (X, Y, zc, C) (reduced by label_stats, kernel B3 on
-    CUDA). Label 0 is not accumulated, so row 0 is zero."""
+    CUDA). Label 0 is not accumulated, so row 0 is zero.
+
+    A device out-of-memory error retries the whole accumulation down a
+    halving ladder of slab depths, z_chunk, z_chunk // 2, ... 1, with the
+    allocator's cache emptied between attempts (utils/oom.py)."""
     if channels_major:
-        run = make_fused_measure(chunk_loader, seg.shape, z_chunk,
-                                 n_channels, max_cells)
-        return run(seg.permute(2, 0, 1).contiguous())[0]
-    sums = torch.zeros((max_cells, n_channels), dtype=torch.float32,
-                       device=seg.device)
-    counts = torch.zeros((max_cells,), dtype=torch.float32,
-                         device=seg.device)
-    for z0 in range(0, z_total, z_chunk):
-        zc = min(z_chunk, z_total - z0)
-        st = segstats.label_stats(seg[:, :, z0:z0 + zc].contiguous(),
-                                  chunk_loader(z0, zc), max_cells)
-        sums += st.sums
-        counts += st.counts
-    return sums / torch.clamp(counts, min=1.0)[:, None]
+        seg_zxy = seg.permute(2, 0, 1).contiguous()
+
+        def run(zc_max):
+            return make_fused_measure(chunk_loader, seg.shape, zc_max,
+                                      n_channels, max_cells)(seg_zxy)[0]
+    else:
+        def run(zc_max):
+            sums = torch.zeros((max_cells, n_channels), dtype=torch.float32,
+                               device=seg.device)
+            counts = torch.zeros((max_cells,), dtype=torch.float32,
+                                 device=seg.device)
+            for z0 in range(0, z_total, zc_max):
+                zc = min(zc_max, z_total - z0)
+                st = segstats.label_stats(
+                    seg[:, :, z0:z0 + zc].contiguous(), chunk_loader(z0, zc),
+                    max_cells)
+                sums += st.sums
+                counts += st.counts
+            return sums / torch.clamp(counts, min=1.0)[:, None]
+
+    return oom.run_with_backoff(run, oom.halving_ladder(z_chunk, 1),
+                                label="z_chunk", on_retry=oom.empty_cache)[0]
+
+
+def measure_volume_zsharded(seg, volume_cm, mesh, axis: str = "fov",
+                            max_cells: int = 16384) -> torch.Tensor:
+    """Per-cell mean spectra over the mesh: the labels and their channel
+    data are block-sharded over ``axis`` as z-slabs; each rank moves its
+    slab to its device and reduces it with stats_cm (kernel B5 on CUDA);
+    global labels are slab-invariant, so the [count, channel sums] tables
+    add, and one all-reduce gives every rank the totals (the JAX
+    function's psum).
+
+    Args:
+      seg: (X, Y, Z) integer labels (0 = background), the same on every
+        rank.
+      volume_cm: (C, Z, X, Y) channels-major intensities, the same on
+        every rank.
+      mesh: a parallel/mesh DeviceMesh with ``axis``; Z must divide by its
+        size.
+    Returns the (max_cells, C) f32 mean spectra on the rank's device;
+    label 0 is not accumulated, so row 0 is zero (as in
+    measure_volume_streamed). Both checks raise on every rank before any
+    collective."""
+    n = meshlib.dim_size(mesh, axis)
+    zdim = seg.shape[2]
+    if zdim % n:
+        raise ValueError(f"Z={zdim} must divide by mesh[{axis!r}]={n}")
+    seg_max = int(seg.max())
+    if seg_max >= max_cells:
+        raise ValueError(
+            f"seg contains label {seg_max} >= max_cells={max_cells}; "
+            "raise max_cells to cover every label")
+    zc = zdim // n
+    z0 = mesh.get_local_rank(axis) * zc
+    dev = meshlib.mesh_device(mesh)
+    labels = torch.as_tensor(seg[:, :, z0:z0 + zc]).to(dev) \
+        .permute(2, 0, 1).contiguous()
+    acc = segstats.stats_cm(
+        labels, torch.as_tensor(volume_cm[:, z0:z0 + zc]).to(dev), max_cells)
+    meshlib.all_reduce(acc, mesh, (axis,))
+    return acc[:, 1:] / torch.clamp(acc[:, :1], min=1.0)
 
 
 # ---------------------------------------------------------------------------
