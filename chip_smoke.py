@@ -50,7 +50,7 @@ non-zero and prints no result:
      (z_chunk=2, B5) -> classify; n_cells must be 9,408 and barcode
      accuracy >= 0.99 over >= 9,300 matched cells, and B3, B4, B5 and B6
      must all launch; print each stage's seconds (synchronised), the total
-     and the peak device memory;
+     and the peak device memory, and each stage's peak;
   9. build the 10-bit E. coli FOV (bench.py's 10-bit configuration: 2000^2,
      5 lasers, 95 channels, 400 planted cells) and hold B3 against its
      plain twin at the 10-bit step's column set: the truth labels with
@@ -251,6 +251,23 @@ non-zero and prints no result:
      seconds (cold, warm), ms per FOV and launches, and must launch its
      kernels (B1-B4, B2, B3/B4/B6, B5). Each spawned world is bounded by
      300 s and its process-group timeout.
+ 22. in-tile seeds, their out-of-memory fallback, the warm-up command and
+     the stencil forms: (a) phase 8's pass again with
+     segment_3d_tiled(global_seeds=False), each tile seeding its own
+     slab: labels byte-identical to phase 8's, the same n_cells, phase
+     8's bars, B3-B6 launched; seconds and each stage's peak beside phase
+     8's; (b) in a spawned process, segment_3d_tiled on 16a's 96 x 64 x 32
+     volume with in-tile and with global seeds, then with global seeds
+     under a real allocator OOM in _global_seeds (a memory cap between
+     the stages' peaks where they stand INTILE_CAP_GAP apart, else a
+     ballast filling the card as _global_seeds starts): the OOM taken by
+     the fallback, its one warning, the in-tile labels; (c) python -m
+     hiprfish_tpu_torch.cli.warmup --family ecoli multispecies 3d --size
+     2000 in a process of its own: rc 0 and its steps' seconds, beside
+     phase 2's build seconds; (d) B6 (bf16, f32) on a 64 x 170 x 64
+     (X, Z, Y) sub-volume of the fixture and B2 on a 512^2 image against
+     the stencil forms on the card (the combine of line_profile_3d, and
+     of line_profile_2d's normalised centres), within 1e-6.
 
 At the end the script's total seconds and the card's line are printed,
 then a JSON object with one entry per kernel (its launches on each path,
@@ -694,13 +711,15 @@ def _volume_tiles(torch, dev, spec, lut_dev, grid=(2, 4), overlap=60):
 
 def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
                  tiled: dict, max_cells: int, z_chunk: int = 2,
-                 log=lambda m: None) -> dict:
+                 log=lambda m: None, mark=lambda stage: None) -> dict:
     """One 3D pass as tools/bench3d.py composes it, from the tiles (popped
     from the one-element list ``tile_box``, so they free after the
     stitch): stitch -> segment_3d_tiled (out_layout="xzy") -> measure
     bf16 channels-major slabs (make_fused_measure, B5) -> classify.
     Returns the labels, n_cells, mean spectra, calls and each stage's
-    seconds (synchronised)."""
+    seconds (synchronised). ``mark(stage)`` is called at the end of the
+    stitch, of segment_3d_tiled's remap, of the measure and of the
+    classify."""
     from hiprfish_tpu_torch.config import SEVEN_BIT as layout
     from hiprfish_tpu_torch.pipeline import fused, segment3d
     from hiprfish_tpu_torch.utils import synthetic3d as s3
@@ -717,6 +736,7 @@ def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
                         10:10 + shape[2]].contiguous()
     _sync(torch, dev)
     stages["stitch"] = time.time() - t0
+    mark("stitch")
     t0 = time.time()
     box = [stitched]
     del stitched
@@ -724,6 +744,7 @@ def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
         box, cfg, max_cells, out_layout="xzy", log=log, **tiled)
     _sync(torch, dev)
     stages["segment"] = time.time() - t0
+    mark("remap")
     t0 = time.time()
     run = segment3d.make_fused_measure(
         lambda z0, zc: s3.channel_chunk_cm(spec, lut_dev.shape[0], z0, zc,
@@ -732,6 +753,7 @@ def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
     avg, _ = run(seg_xzy.permute(1, 0, 2).contiguous())
     _sync(torch, dev)
     stages["measure"] = time.time() - t0
+    mark("measure")
     t0 = time.time()
     norm = avg / torch.clamp(torch.max(avg, dim=1, keepdim=True).values,
                              min=1e-12)
@@ -741,15 +763,46 @@ def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
         arrays["train_labels"], *static[:6])
     pred = pred.cpu().numpy()
     stages["classify"] = time.time() - t0
+    mark("classify")
     return {"seg_xzy": seg_xzy, "n_cells": n_cells, "avg": avg,
             "pred": pred, "stages": stages}
 
 
+class _StagePeaks:
+    """Each stage's peak allocated device memory in GiB, read and reset
+    at the stage's end (``mark``): segment_3d_tiled's 'tile i/n' messages
+    are one stage, 'tiles', and its 'merge: ...' message is 'merge'.
+    ``base_gib`` is what was allocated when the pass began (tensors of
+    earlier phases), which every peak includes."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.gib = torch, dev, {}
+        self.base_gib = torch.cuda.memory_allocated(dev) / 2 ** 30 \
+            if dev.type == "cuda" else 0.0
+
+    def text(self) -> str:
+        """The stages' peaks above base_gib."""
+        return ", ".join(f"{k} {v - self.base_gib:.2f}"
+                         for k, v in self.gib.items()) \
+            + f" (above {self.base_gib:.2f} GiB live before the pass)"
+
+    def mark(self, stage: str) -> None:
+        if self.dev.type != "cuda":
+            return
+        key = "tiles" if stage.startswith("tile ") else stage.split(":")[0]
+        peak = self.torch.cuda.max_memory_allocated(self.dev) / 2 ** 30
+        self.torch.cuda.reset_peak_memory_stats(self.dev)
+        self.gib[key] = max(self.gib.get(key, 0.0), peak)
+
+
 def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
-                 max_cells: int) -> dict:
+                 max_cells: int, tag: str = "phase 8",
+                 keep_labels: bool = False) -> dict:
     """The 3D pass on ``dev`` with launches counted from zero, then its
     accuracy against the planted truth. Returns stage seconds, total,
-    n_cells, correct/matched, launch counts and peak device memory."""
+    n_cells, correct/matched, launch counts, peak device memory and each
+    stage's peak, and with ``keep_labels`` the (X, Z, Y) labels on the
+    host."""
     from hiprfish_tpu_torch import kernels
     from hiprfish_tpu_torch.config import SEVEN_BIT as layout
     from hiprfish_tpu_torch.pipeline import fused
@@ -765,20 +818,22 @@ def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
         torch.cuda.reset_peak_memory_stats()
     t_seg = time.time()
 
+    peaks = _StagePeaks(torch, dev)
+
     def log(msg):
         _sync(torch, dev)
-        print(f"phase 8   +{time.time() - t_seg:.2f} s: {msg}")
+        print(f"{tag}   +{time.time() - t_seg:.2f} s: {msg}")
+        peaks.mark(msg)
 
     # hand the tiles over, so that they free after the stitch
     tile_box = [tiles]
     del tiles
     kernels.reset_launches()
     r = _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
-                     tiled, max_cells, log=log)
+                     tiled, max_cells, log=log, mark=peaks.mark)
     total = time.time() - t_seg
     launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
-        if dev.type == "cuda" else 0.0
+    peak = max(peaks.gib.values(), default=0.0)
     seg_xzy, avg = r["seg_xzy"], r["avg"]
     if seg_xzy.shape != (spec.shape[0], spec.shape[2], spec.shape[1]) \
             or not bool(torch.isfinite(avg).all()):
@@ -786,9 +841,14 @@ def _volume_pass(torch, dev, spec, lut_dev, clf, cfg, tiled: dict,
     correct, matched = _accuracy_3d(torch, s3, spec, n_codes, seg_xzy,
                                     r["pred"], lut_class, r["n_cells"],
                                     max_cells)
-    return {"stages": r["stages"], "total": total,
-            "n_cells": r["n_cells"], "correct": correct, "matched": matched,
-            "launches": launches, "peak_gib": peak}
+    out = {"stages": r["stages"], "total": total,
+           "n_cells": r["n_cells"], "correct": correct, "matched": matched,
+           "launches": launches, "peak_gib": peak,
+           "stage_peaks_gib": peaks.gib, "base_gib": peaks.base_gib,
+           "stage_peaks_text": peaks.text()}
+    if keep_labels:
+        out["seg_xzy"] = seg_xzy.cpu()
+    return out
 
 
 def _b3_exact_columns(ncols: int, nmom: int, nchan: int) -> list:
@@ -1334,9 +1394,10 @@ def _volume_cpu_vs_card(torch, kernels, dev) -> dict:
     for d in (torch.device("cpu"), dev):
         shifts = []
         kernels.reset_launches()
+        # host arrays: each goes to ``d``
         seg, n, _, _ = segment3d.segment_3d(
-            [torch.from_numpy(b) for b in blocks], SegmentationConfig(), 64,
-            bf16=True, device=d, shifts=shifts)
+            list(blocks), SegmentationConfig(), 64, bf16=True, device=d,
+            shifts=shifts)
         _sync(torch, d)
         out[d.type] = (seg.cpu(), n, shifts, kernels.launch_counts())
     (seg_c, n_c, sh_c, _), (seg_g, n_g, sh_g, launches) = out["cpu"], \
@@ -2650,6 +2711,20 @@ SCALE_MEASURE_RTOL = 2.0 ** -15
 SCALE_CSV_RTOL = 2.0 ** -14
 OOM_MARGIN = 512 * 2**20
 SCALE_TIMEOUT_S = 300
+# phase 22: in-tile seeds, their out-of-memory fallback, the warm-up
+# command and the stencil forms. (b) caps the memory only where the
+# global seed stage's peak stands at least INTILE_CAP_GAP above every
+# stage of the in-tile run (else a ballast fills the card inside
+# _global_seeds); the ballast's chunk sizes, each allocated until the
+# allocator refuses (the last is below (b)'s first allocation in
+# _global_seeds, a 96 x 32 x 64 bool mask); (c)'s command; (d)'s (X, Z, Y)
+# sub-volume of the 3D fixture and its 2D image side
+INTILE_CAP_GAP = 256 * 2 ** 20
+BALLAST_CHUNKS = (2 ** 30, 64 * 2 ** 20, 2 * 2 ** 20, 128 * 2 ** 10)
+WARMUP_ARGV = ("-m", "hiprfish_tpu_torch.cli.warmup", "--family", "ecoli",
+               "multispecies", "3d", "--size", "2000")
+STENCIL_3D = (64, 170, 64)
+STENCIL_2D = 512
 
 
 def _scale_inputs(torch, kernels, dev, refs: dict, tmp: str) -> dict:
@@ -2933,7 +3008,7 @@ def _spawn(targets) -> None:
             p.join()
     codes = [p.exitcode for p in procs]
     if any(c != 0 for c in codes):
-        raise AssertionError(f"phase 21: spawned processes ended {codes}")
+        raise AssertionError(f"spawned processes ended {codes}")
 
 
 def _rows_close(u: str, v: str) -> bool:
@@ -3104,6 +3179,260 @@ def _print_world(tag: str, res: dict) -> None:
               f"launches {r['launches']}")
 
 
+def _in_tile_phase(torch, dev, clf, ref8: dict) -> dict:
+    """Phase 22 (a): phase 8's pass with global_seeds=False (each tile
+    seeds its own slab), launches counted from zero: labels byte-identical
+    to phase 8's, the same n_cells, the bars of phase 8."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
+    from hiprfish_tpu_torch.utils import synthetic
+    from hiprfish_tpu_torch.utils import synthetic3d as s3
+
+    spec = s3.VolumeSpec(shape=SHAPE_3D, spacing=(36, 36, 52), seed=5)
+    lut_dev = torch.from_numpy(np.stack([
+        synthetic.barcode_spectrum(SEVEN_BIT, c)
+        for c in range(1, 128)]).astype(np.float32)).to(dev)
+    torch.cuda.empty_cache()
+    r = _volume_pass(torch, dev, spec, lut_dev, clf, SegmentationConfig(),
+                     dict(TILED_3D, global_seeds=False), MAX_CELLS_3D,
+                     tag="phase 22a", keep_labels=True)
+    seg = r.pop("seg_xzy")
+    equal = bool(torch.equal(seg, ref8["seg_xzy"]))
+    differ = 0 if equal else int((seg != ref8["seg_xzy"]).sum())
+    del seg
+    n, matched, correct = r["n_cells"], r["matched"], r["correct"]
+    acc = correct / max(matched, 1)
+    print(f"phase 22a in-tile seeds {SHAPE_3D}: n_cells {n} (global seeds "
+          f"{ref8['n_cells']}, planted {spec.n_cells}), labels "
+          f"byte-identical {equal} ({differ} voxels differ), matched "
+          f"{matched}, accuracy {acc:.4f} ({correct}/{matched}); "
+          f"{r['total']:.2f} s (global seeds {ref8['total']:.2f} s); "
+          f"launches {r['launches']}")
+    print(f"phase 22a stage peaks (GiB): {r['stage_peaks_text']}; global "
+          f"seeds' (phase 8): {ref8['stage_peaks_text']}")
+    missing = [k for k in PATH_3D if r["launches"][k] == 0]
+    if not equal or n != ref8["n_cells"] or missing:
+        raise AssertionError(f"phase 22a: in-tile seeds differ from the "
+                             f"global seeds or kernels not launched "
+                             f"{missing}")
+    if n != spec.n_cells or matched < 9300 or acc < 0.99:
+        raise AssertionError("phase 22a: n_cells != 9408, or accuracy below "
+                             "0.99, or fewer than 9300 matched cells")
+    r["accuracy"] = acc
+    r["labels_equal"] = equal
+    return r
+
+
+def _fill_device(torch, dev) -> list:
+    """Tensors that hold the card's free memory: chunks of each of
+    BALLAST_CHUNKS allocated until the allocator refuses one."""
+    ballast = []
+    for chunk in BALLAST_CHUNKS:
+        while True:
+            try:
+                ballast.append(torch.empty(chunk, dtype=torch.uint8,
+                                           device=dev))
+            except torch.OutOfMemoryError:
+                break
+    return ballast
+
+
+def _fallback_rank(tmp: str) -> None:
+    """Phase 22 (b) in a spawned process of its own: segment_3d_tiled on
+    16a's 96 x 64 x 32 volume with in-tile seeds and with global seeds,
+    each stage's peak reserved memory read, then with global seeds under
+    an allocator out-of-memory error inside _global_seeds: a memory cap
+    between the in-tile run's highest stage and the global seed stage
+    where those stand INTILE_CAP_GAP apart, else a ballast that fills the
+    card as _global_seeds starts and is freed as the error leaves it. The
+    results go to tmp/fallback.json."""
+    import logging
+
+    import torch
+
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.config import SegmentationConfig
+    from hiprfish_tpu_torch.pipeline import segment3d
+    from hiprfish_tpu_torch.utils import oom
+
+    dev = torch.device("cuda", 0)
+    vol_sum = _volume_stack([1, 9, 65, 127, 3, 5, 17, 33, 64],
+                            (96, 64, 32)).sum(axis=3)
+    cfg = SegmentationConfig(kmeans_iters=SCALE_KMEANS)
+
+    def run(**kw):
+        peaks = {}
+
+        def log(msg):
+            key = "tiles" if msg.startswith("tile ") else msg.split(":")[0]
+            torch.cuda.synchronize()
+            peaks[key] = max(peaks.get(key, 0),
+                             torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        seg, n, _ = segment3d.segment_3d_tiled(
+            torch.from_numpy(vol_sum).to(dev), cfg, log=log, **kw,
+            **SCALE_TILED)
+        torch.cuda.synchronize()
+        return {"seg": seg.cpu(), "n": n, "seconds": time.time() - t0,
+                "peaks": peaks, "launches": kernels.launch_counts()}
+
+    in_tile = run(global_seeds=False)
+    run()  # warm
+    glob = run()
+    gap = glob["peaks"]["global seeds"] - max(in_tile["peaks"].values())
+    total = torch.cuda.get_device_properties(0).total_memory
+    original = segment3d._global_seeds
+    raised = []
+
+    def capped_seeds(*args):
+        try:
+            return original(*args)
+        except BaseException as e:
+            raised.append(type(e).__name__)
+            raise
+
+    def ballast_seeds(*args):
+        torch.cuda.empty_cache()
+        ballast = _fill_device(torch, dev)
+        try:
+            return original(*args)
+        except BaseException as e:
+            raised.append(type(e).__name__)
+            raise
+        finally:
+            del ballast
+
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: warnings.append(rec.getMessage())
+    oom.log.addHandler(handler)
+    if gap >= INTILE_CAP_GAP:
+        how = "cap"
+        cap = max(in_tile["peaks"].values()) + gap / 2
+        segment3d._global_seeds = capped_seeds
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+    else:
+        how, cap = "ballast", None
+        segment3d._global_seeds = ballast_seeds
+    try:
+        fell = run()
+    finally:
+        segment3d._global_seeds = original
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        oom.log.removeHandler(handler)
+    out = {"how": how, "cap": cap, "gap": gap, "raised": raised,
+           "warnings": warnings, "n_in_tile": in_tile["n"],
+           "n_global": glob["n"], "n_fallback": fell["n"],
+           "fallback_equals_in_tile": bool(torch.equal(fell["seg"],
+                                                       in_tile["seg"])),
+           "global_equals_in_tile": bool(torch.equal(glob["seg"],
+                                                     in_tile["seg"])),
+           **{f"{k}_{name}": r[k] for name, r in (
+               ("in_tile", in_tile), ("global", glob), ("fallback", fell))
+              for k in ("seconds", "peaks", "launches")}}
+    with open(os.path.join(tmp, "fallback.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _fallback_phase() -> dict:
+    """Phase 22 (b): _fallback_rank in a spawned process; the OOM must
+    come from the allocator (torch.OutOfMemoryError raised in
+    _global_seeds), the fallback's one warning must appear, and its labels
+    must equal the in-tile run's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        _spawn([(_fallback_rank, (tmp,))])
+        with open(os.path.join(tmp, "fallback.json")) as f:
+            out = json.load(f)
+    out["seconds"] = time.time() - t0
+    mib = {k: {s: round(v / 2 ** 20, 1) for s, v in out[k].items()}
+           for k in ("peaks_in_tile", "peaks_global")}
+    print(f"phase 22b OOM fallback on 96x64x32 ({out['how']}; gap of the "
+          f"global seed stage over the in-tile run {out['gap'] / 2**20:.1f} "
+          f"MiB): raised {out['raised']}, warnings {out['warnings']}, "
+          f"n_cells in-tile / global / fallback {out['n_in_tile']} / "
+          f"{out['n_global']} / {out['n_fallback']}, fallback labels equal "
+          f"the in-tile labels {out['fallback_equals_in_tile']} (global "
+          f"seeds' equal {out['global_equals_in_tile']}); seconds in-tile "
+          f"{out['seconds_in_tile']:.3f} global {out['seconds_global']:.3f} "
+          f"fallback {out['seconds_fallback']:.3f}; peaks reserved (MiB) "
+          f"{mib}; launches {out['launches_fallback']}; phase "
+          f"{out['seconds']:.1f} s")
+    if out["raised"] != ["OutOfMemoryError"] \
+            or out["warnings"] != ["global seeds OOM -> in-tile seeds"] \
+            or not out["fallback_equals_in_tile"] \
+            or out["n_fallback"] != out["n_in_tile"]:
+        raise AssertionError("phase 22b: no allocator OOM taken by the "
+                             "fallback, or its labels differ")
+    return out
+
+
+def _warmup_phase(build_s: float) -> dict:
+    """Phase 22 (c): the warm-up command in a process of its own (the
+    build directory is phase 2's, so its builds are found): rc 0 and each
+    step's seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, *WARMUP_ARGV], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.time() - t0
+    steps = [ln[2:] for ln in proc.stderr.splitlines()
+             if ln.startswith("# ")]
+    print(f"phase 22c python {' '.join(WARMUP_ARGV)}: rc "
+          f"{proc.returncode}, {seconds:.1f} s; steps {steps}; phase 2's "
+          f"build in this process {build_s:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22c: warm-up failed\n{proc.stderr}")
+    return {"rc": proc.returncode, "seconds": seconds, "steps": steps,
+            "phase2_build_s": build_s}
+
+
+def _stencil_phase(torch, dev, sub_xzy) -> dict:
+    """Phase 22 (d): B6 (bf16, f32) on an (X, Z, Y) sub-volume of the 3D
+    fixture against _lp_cv_combine(line_profile_3d(edge-padded volume)),
+    and B2 on a STENCIL_2D^2 image against the quartile combine of
+    line_profile_2d's normalised centres, both stencil forms on the card;
+    each within its kernel's tolerance."""
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.ops import line_profile as lp
+
+    def pad(t, p):
+        return torch.nn.functional.pad(t[None, None], (p,) * (2 * t.ndim),
+                                       mode="replicate")[0, 0]
+
+    out = {}
+    vol_xyz = sub_xzy.permute(0, 2, 1)
+    for bf16 in (True, False):
+        got = kernels.lpcv3d(sub_xzy, bf16)
+        padded = pad(vol_xyz, 5)
+        ref = lp._lp_cv_combine(lp.line_profile_3d(
+            padded.to(torch.bfloat16) if bf16 else padded))
+        out[f"lpcv3d {'bf16' if bf16 else 'f32'}"] = float(
+            (got - ref.permute(0, 2, 1)).abs().max())
+    img = torch.from_numpy(_smooth_image((STENCIL_2D,) * 2, 22)).to(dev)
+    prof = lp.line_profile_2d(pad(img, 5))
+    lo, hi = prof.min(dim=-1).values, prof.max(dim=-1).values
+    rnc = (prof[..., 5] - lo) / torch.clamp(hi - lo, min=1e-8)
+    out["lpcv2d"] = float((kernels.lpcv2d(img, 11, 9)
+                           - lp._lp_cv_combine(rnc)).abs().max())
+    ok = all(v <= TOL[k.split()[0]] for k, v in out.items())
+    print(f"phase 22d stencil forms on the card, max_abs_err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+          + f" (B6 on {tuple(sub_xzy.shape)} (X, Z, Y), B2 on "
+          f"{STENCIL_2D}^2; tol {TOL['lpcv3d']:.0e} abs) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 22d: a kernel disagrees with the "
+                             "stencil form")
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3151,7 +3480,8 @@ def main() -> int:
             pool.submit(_build.build_lpcv3d, *c) for c in cfgs3]
         lib, *libs3 = (j.result() for j in jobs)
     _build.load()
-    print(f"phase 2 build: {time.time() - t0:.1f} s -> {lib}, "
+    build_s = time.time() - t0
+    print(f"phase 2 build: {build_s:.1f} s -> {lib}, "
           f"{[str(p) for p in libs3]}")
     for stem in ("nlm", "lpcv2d", "segstats", "lpcv3d"):
         for line in _build.ptxas_report(stem):
@@ -3370,6 +3700,9 @@ def main() -> int:
               sub, bf16=True, layout="xzy"), 5, 2,
           kernel_work("lpcv3d", voxels=sub.numel()), phase=6)
     del sub
+    # 22(d)'s (X, Z, Y) sub-volume of the normalised fixture
+    stencil_sub = (vol[:STENCIL_3D[0], :STENCIL_3D[2], :] / vol.max()) \
+        .permute(0, 2, 1).contiguous()
     sub_report = report.pop("lpcv3d")
     vol_xzy = (vol / vol.max()).permute(0, 2, 1).contiguous()
     out_k = kernels.lpcv3d(vol_xzy, True)
@@ -3463,12 +3796,13 @@ def main() -> int:
     # 8. the 3D volume path at full size
     del vol
     r3 = _volume_pass(torch, dev, spec, lut_dev, clf, cfg, TILED_3D,
-                      MAX_CELLS_3D)
+                      MAX_CELLS_3D, keep_labels=True)
     launches3 = r3["launches"]
     print(f"phase 8 stages (s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in r3["stages"].items())
         + f"; total {r3['total']:.2f} s; peak memory {r3['peak_gib']:.2f} "
         f"GiB; launches {launches3}")
+    print(f"phase 8 stage peaks (GiB): {r3['stage_peaks_text']}")
     missing = [k for k in PATH_3D if launches3[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the 3D path: "
@@ -3486,6 +3820,10 @@ def main() -> int:
     from hiprfish_tpu_torch.config import TEN_BIT
     from hiprfish_tpu_torch.pipeline import fused_ecoli, measure, segment2d
 
+    # phase 22 (a)'s reference: the global seeds' labels and result
+    ref8 = {"seg_xzy": r3.pop("seg_xzy"), "n_cells": r3["n_cells"],
+            "correct": r3["correct"], "matched": r3["matched"],
+            "total": r3["total"], "stage_peaks_text": r3["stage_peaks_text"]}
     del r3, spec, lut_dev
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -3779,6 +4117,18 @@ def main() -> int:
     planes.cleanup()
     w1, w2 = scale["world 1"], scale["world 2"]
 
+    # 22. in-tile seeds and their OOM fallback, the warm-up command, the
+    # stencil forms
+    torch.cuda.empty_cache()
+    t22 = time.time()
+    intile = _in_tile_phase(torch, dev, clf, ref8)
+    del ref8
+    fallback = _fallback_phase()
+    warm = _warmup_phase(build_s)
+    stencils = _stencil_phase(torch, dev, stencil_sub)
+    del stencil_sub
+    print(f"phase 22: {time.time() - t22:.1f} s")
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -3828,6 +4178,10 @@ def main() -> int:
         w2["run_distributed_pipeline"]["launches"], PATH_2D)
     by_path["run_batch_pipeline, OOM halving"] = (
         scale["oom"]["capped"]["launches"], PATH_2D)
+    by_path["volume_3d, in-tile seeds"] = (intile["launches"], PATH_3D)
+    by_path["segment_3d_tiled, OOM fallback"] = (
+        fallback["launches_fallback"],
+        ("label_stats", "label_lookup", "lpcv3d"))
     entries = []
     for key in REPORT_ORDER:
         k = key.split("[")[0]
@@ -3850,7 +4204,11 @@ def main() -> int:
                                    "recipes": train_b,
                                    "cli.train": train_c},
                       "workflow": wf, "readers": readers,
-                      "legacy": legacy, "scale_out": scale}))
+                      "legacy": legacy, "scale_out": scale,
+                      "in_tile_seeds": {"volume": intile,
+                                        "oom_fallback": fallback,
+                                        "warmup": warm,
+                                        "stencil_forms": stencils}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,8 @@ python -m hiprfish_tpu_torch.cli.biofilm              (biofilm 2D, z-slice, 3D)
 python -m hiprfish_tpu_torch.cli.train                (classifier training)
 python -m hiprfish_tpu_torch.cli.workflow             (measure -> classify ->
                                                        collect over a table)
+python -m hiprfish_tpu_torch.cli.warmup               (build the kernels and
+                                                       host libraries once)
 
 and, with no device work and no --device flag:
 

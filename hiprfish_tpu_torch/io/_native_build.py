@@ -40,6 +40,9 @@ LIBRARIES = {
     "libczi_native.so": (("czi_native.cc", "jxr.cc"), ("-lzstd", "-ljpeg")),
 }
 
+# library -> the system headers its sources include
+HEADERS = {"libczi_native.so": ("zstd.h", "jpeglib.h")}
+
 _lock = threading.Lock()
 
 
@@ -95,3 +98,20 @@ def build(name: str) -> Path:
         _run([CXX, *CXX_FLAGS, *objs, "-o", str(tmp), *link])
         os.replace(tmp, lib)
     return lib
+
+
+def missing_headers(name: str) -> list:
+    """The system headers of library ``name`` that the preprocessor does
+    not find (HEADERS); raises NativeBuildError when g++ cannot run."""
+    missing = []
+    for header in HEADERS.get(name, ()):
+        try:
+            proc = subprocess.run([CXX, "-x", "c++", "-E", "-"],
+                                  input=f"#include <{header}>\n",
+                                  capture_output=True, text=True,
+                                  timeout=60)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise NativeBuildError(f"{CXX} -E: {e}") from e
+        if proc.returncode != 0:
+            missing.append(header)
+    return missing

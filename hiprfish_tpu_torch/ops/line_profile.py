@@ -2,6 +2,13 @@
 hiprfish_tpu/ops/line_profile.py and of the 3D chunk sweep of
 hiprfish_tpu/pipeline/segment3d.py).
 
+``line_profile_2d``, ``line_profile_3d``, ``line_profile_3d_full`` and
+``neighbor_average`` are the stencil forms of the reference's Cython
+``neighbor2d.pyx`` / ``neighbor.pyx`` functions, in plain torch on any
+device: shifted views of a padded image, with no kernel of their own.
+B2 and B6 compute ``_lp_cv_combine`` of the first two without the
+profile tensors.
+
 ``lp_cv_enhance_2d`` is the wrapper of kernel B2 (csrc/lpcv2d.cu), which
 takes the line table of any (patch_size, phi_range) as an argument.
 ``lp_cv_enhance_3d`` is the wrapper of kernel B6 (csrc/lpcv3d.cu), whose
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from hiprfish_tpu_torch import kernels
+from hiprfish_tpu_torch.ops import fp
 
 
 def _line_coords_1axis(interval: int, line_n: int, li: int,
@@ -156,6 +164,96 @@ def _lp_cv_combine(rnc_stack: torch.Tensor,
     qcv = torch.where(uq > 0, (uq - lq) / (uq + lq + 1e-8),
                       torch.zeros_like(uq))
     return mean * (1.0 - qcv)
+
+
+def line_profile_2d(image_padded: torch.Tensor, patch_size: int = 11,
+                    phi_range: int = 9) -> torch.Tensor:
+    """All line profiles of an edge-padded (H + patch - 1, W + patch - 1)
+    image: (H, W, phi_range, patch_size), in the image's dtype (the
+    reference's line_profile_2d_v2)."""
+    table = line_table_2d(patch_size, phi_range)
+    h = image_padded.shape[0] - (patch_size - 1)
+    w = image_padded.shape[1] - (patch_size - 1)
+    return torch.stack([
+        torch.stack([image_padded[di:di + h, dj:dj + w]
+                     for di, dj in table[t].tolist()], dim=-1)
+        for t in range(phi_range)], dim=2)
+
+
+def _views_3d(vol: torch.Tensor, coords, shape) -> list:
+    """The (x, y, z) views of ``vol`` at each patch coordinate."""
+    x, y, z = shape
+    return [vol[cx:cx + x, cy:cy + y, cz:cz + z] for cx, cy, cz in coords]
+
+
+def line_profile_3d(volume_padded: torch.Tensor, patch_size: int = 11,
+                    theta_range: int = 9, phi_range: int = 9
+                    ) -> torch.Tensor:
+    """Centre-normalised 3D line profiles of a padded (X + patch - 1,
+    Y + patch - 1, Z + patch - 1) volume: (X, Y, Z, (theta_range - 1) *
+    phi_range) f32, per orientation (centre - min) / max(max - min, 1e-8)
+    of its samples (the reference's line_profile_memory_efficient_v2).
+    Min and max are taken in bf16 for a bf16 volume (the selection
+    commutes with the rounding), in f32 otherwise; the ratio in f32."""
+    table = line_table_3d(patch_size, theta_range, phi_range)
+    shape = tuple(n - (patch_size - 1) for n in volume_padded.shape)
+    acc = torch.bfloat16 if volume_padded.dtype == torch.bfloat16 \
+        else torch.float32
+    vol = volume_padded.to(acc)
+    out = torch.empty(shape + (table.shape[0],), dtype=torch.float32,
+                      device=vol.device)
+    centre = (patch_size - 1) // 2
+    for t in range(table.shape[0]):
+        views = _views_3d(vol, table[t].tolist(), shape)
+        vmin = functools.reduce(torch.minimum, views).to(torch.float32)
+        vmax = functools.reduce(torch.maximum, views).to(torch.float32)
+        out[..., t] = (views[centre].to(torch.float32) - vmin) \
+            / torch.clamp(vmax - vmin, min=1e-8)
+    return out
+
+
+def line_profile_3d_full(volume_padded: torch.Tensor, patch_size: int = 11,
+                         theta_range: int = 9, phi_range: int = 9
+                         ) -> torch.Tensor:
+    """Raw 3D line profiles of a padded volume: (X, Y, Z, (theta_range -
+    1) * phi_range, patch_size) f32 (the reference's line_profile_v2);
+    (T x patch) copies of the volume, so only for small ones."""
+    table = line_table_3d(patch_size, theta_range, phi_range)
+    shape = tuple(n - (patch_size - 1) for n in volume_padded.shape)
+    vol = volume_padded.to(torch.float32)
+    return torch.stack([torch.stack(_views_3d(vol, coords.tolist(), shape),
+                                    dim=-1) for coords in table], dim=3)
+
+
+def neighbor_average(volume_padded: torch.Tensor,
+                     patch_size: int = 11) -> torch.Tensor:
+    """Box means around each voxel of a volume padded by patch_size - 1 on
+    every side: (X, Y, Z, patch_size - 1) f32, slot s - 1 the mean over the
+    (2s + 1)^3 cube (the reference's neighbor_average). An integral volume
+    (f32 cumulative sums over each axis, fp.cumsum_in_order) and eight
+    corners per box, in the reference CPU program's order."""
+    pad = patch_size - 1
+    x, y, z = (n - 2 * pad for n in volume_padded.shape)
+    c = volume_padded.to(torch.float32)
+    for ax in range(3):
+        c = fp.cumsum_in_order(c, ax)
+        c = F.pad(c, [0, 0] * (2 - ax) + [1, 0])
+    outs = []
+    for s in range(1, patch_size):
+        size, lo = 2 * s + 1, pad - s
+
+        def corner(dx, dy, dz):
+            ox, oy, oz = lo + dx * size, lo + dy * size, lo + dz * size
+            return c[ox:ox + x, oy:oy + y, oz:oz + z]
+
+        box = corner(1, 1, 1) - corner(0, 1, 1) - corner(1, 0, 1) \
+            - corner(1, 1, 0)
+        box = box + corner(0, 0, 1) + corner(0, 1, 0) + corner(1, 0, 0) \
+            - corner(0, 0, 0)
+        # times the float32 reciprocal, as the reference's compiled
+        # program divides by a constant
+        outs.append(box * (np.float32(1) / np.float32(size ** 3)))
+    return torch.stack(outs, dim=-1)
 
 
 def lp_cv_enhance_2d_plain(image: torch.Tensor, patch_size: int = 11,

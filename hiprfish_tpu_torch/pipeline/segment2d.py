@@ -19,13 +19,16 @@ denoised image, keeps every cell, floods the channel sum over the whole
 background for the adjacency segmentation and marks the epithelial area
 (``_epithelial_area``).
 
-Both run eagerly on the device of their inputs.
+Both run eagerly on the device of their inputs: a tensor stays on its
+device, and host arrays go to ``device``, the card unless the caller
+names the CPU.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from hiprfish_tpu_torch.config import SegmentationConfig
@@ -50,6 +53,14 @@ class Segmentation2D(NamedTuple):
     enhanced: torch.Tensor       # (H, W) surface used for flooding
     adjacency: torch.Tensor      # (H, W) int32 adjacency segmentation (or 0s)
     epithelial: torch.Tensor     # (H, W) bool epithelial area (or False)
+
+
+def _on_device(image, device) -> torch.Tensor:
+    """A tensor as it is, on its own device; a host array (numpy, or a
+    nested list of them) as a tensor on ``device``."""
+    if isinstance(image, torch.Tensor):
+        return image
+    return torch.as_tensor(np.asarray(image), device=device)
 
 
 def _register_stack(image_stack, projections, max_shift, clamp,
@@ -122,12 +133,14 @@ def erosion_seed_markers(cell_sm: torch.Tensor,
 
 
 def segment_ecoli(image_stack, cfg: SegmentationConfig = SegmentationConfig(),
-                  max_cells: int = 4096) -> Segmentation2D:
+                  max_cells: int = 4096,
+                  device=torch.device("cuda")) -> Segmentation2D:
     """Erosion-seeded watershed segmentation of a multi-laser FOV.
 
     image_stack: sequence of per-laser (H, W, C_l) float32 tensors on one
-    device. The registered cube stays float32."""
-    image_stack = tuple(torch.as_tensor(a) for a in image_stack)
+    device, or host arrays, which go to ``device``. The registered cube
+    stays float32."""
+    image_stack = tuple(_on_device(a, device) for a in image_stack)
     projections = [torch.amax(img, dim=2) for img in image_stack]
     registered, overlap = _register_stack(image_stack, projections,
                                           cfg.max_shift, cfg.clamp_shift)
@@ -173,16 +186,17 @@ def segment_ecoli(image_stack, cfg: SegmentationConfig = SegmentationConfig(),
 def segment_lpcv(image_stack, calibration=None,
                  cfg: SegmentationConfig = SegmentationConfig(),
                  max_cells: int = 4096,
-                 variant: str = "multispecies") -> Segmentation2D:
+                 variant: str = "multispecies",
+                 device=torch.device("cuda")) -> Segmentation2D:
     """LP-CV enhanced watershed segmentation of a multi-laser FOV.
 
     image_stack: sequence of per-laser (H, W, C_l) float32 tensors on one
-    device; calibration: None or a tensor the registered cube is divided
-    by. The shifts come from FFT correlation of the full-frame per-laser
-    channel sums (their logs for the biofilm variant) and are not clamped;
-    the cube stays float32."""
+    device, or host arrays, which go to ``device``; calibration: None or
+    an array the registered cube is divided by. The shifts come from FFT
+    correlation of the full-frame per-laser channel sums (their logs for
+    the biofilm variant) and are not clamped; the cube stays float32."""
     biofilm = _is_biofilm(variant)
-    image_stack = tuple(torch.as_tensor(a) for a in image_stack)
+    image_stack = tuple(_on_device(a, device) for a in image_stack)
     projections = [fp.sum_in_order(img, 2) for img in image_stack]
     registered, _ = _register_stack(image_stack, projections, cfg.max_shift,
                                     clamp=False, log_domain=biofilm)

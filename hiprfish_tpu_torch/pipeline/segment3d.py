@@ -2,9 +2,10 @@
 hiprfish_tpu/pipeline/segment3d.py).
 
 The tiled volume engine: stitch_tiles_device -> segment_3d_tiled (3D
-LP-CV, kernel B6 -> global KMeans thresholds -> global seed mask ->
-margin-tiled CCL + rank + seed size filter (B3, B4) + watershed -> host
-union-find over the tile boundaries -> remap (B4)) ->
+LP-CV, kernel B6 -> global KMeans thresholds -> global seed mask, or
+each tile's own seeds when it does not fit -> margin-tiled CCL + rank +
+seed size filter (B3, B4) + watershed -> host union-find over the tile
+boundaries -> remap (B4)) ->
 measure_volume_streamed / make_fused_measure (per-cell spectra streamed
 over z-slabs, B5 for channels-major slabs, B3 otherwise). Classification
 is pipeline/fused.classify_device. From the moment segment_3d_tiled has
@@ -15,7 +16,8 @@ all follow linear order in that layout, so the cell numbering and
 thresholds are the reference's. Over a parallel/mesh DeviceMesh,
 segment_3d_tiled(mesh=) sweeps the tiles over the mesh's 'fov' ranks, and
 measure_volume_zsharded reduces one z-slab per rank (B5) and all-reduces
-the tables.
+the tables. warmup_pipeline builds the kernels a volume pass launches
+ahead of it (cli/warmup.py).
 
 The untiled engine of one z-stack (cli.biofilm -d 3):
 measure_biofilm_images_3d reads the per-laser stacks, register_volume_stack
@@ -33,13 +35,16 @@ single planes of the registered stack (kernels B1 and B2 on the card);
 register_tstack_average and the host stitch_tiles are the reference's
 time-series average and numpy tile stitcher.
 
-Everything runs eagerly on the device of its inputs. Where the reference
-branched inside a compiled program or spilled a fixed-size device buffer,
-the port reads a small result back to the host: the registration and
-stitch shifts once, the seed filter's component count, the boundary pair
-sets (torch.unique per boundary is exact, so the reference's pair cap and
-its full-plane fallback are not needed) and the per-tile presence
-bitmaps.
+Everything runs eagerly on the device of its inputs. The entry points
+that take host arrays (segment_3d, register_volume_stack,
+register_tstack_average, segment_zstack_slice) put them on ``device``,
+the card unless the caller names the CPU; a tensor stays where it is.
+Where the reference branched inside a compiled program or spilled a
+fixed-size device buffer, the port reads a small result back to the
+host: the registration and stitch shifts once, the seed filter's
+component count, the boundary pair sets (torch.unique per boundary is
+exact, so the reference's pair cap and its full-plane fallback are not
+needed) and the per-tile presence bitmaps.
 """
 
 from __future__ import annotations
@@ -87,21 +92,31 @@ def _on(volume, device) -> torch.Tensor:
     return t.permute(order).to(device).permute(back)
 
 
-def register_tstack_average(volumes):
+def _host_on(volume, device) -> torch.Tensor:
+    """A tensor as it is, on its own device; a host array (numpy, or a
+    nested list of them) as a tensor on ``device``, in its memory order."""
+    if isinstance(volume, torch.Tensor):
+        return volume
+    return _on(np.asarray(volume), device)
+
+
+def register_tstack_average(volumes, device=torch.device("cuda")):
     """Average a time series of (X, Y, Z, C) volumes after registering each
     to the first on their channel sums (each shift read to the host
-    once)."""
-    ref = torch.as_tensor(volumes[0])
+    once). Host arrays go to ``device`` (the card unless the caller names
+    the CPU); tensors stay on their devices."""
+    ref = _host_on(volumes[0], device)
     ref_sum = fp.sum_in_order(ref, 3)
     acc = ref
     for v in volumes[1:]:
-        vol = torch.as_tensor(v)
+        vol = _host_on(v, device)
         shift = reg.register_translation_3d(ref_sum, fp.sum_in_order(vol, 3))
         acc = acc + reg.apply_shift_3d(vol, shift)[0]
     return acc / len(volumes)
 
 
-def register_volume_stack(volume_stack, device=None, shifts=None):
+def register_volume_stack(volume_stack, device=torch.device("cuda"),
+                          shifts=None):
     """Register per-laser (X, Y, Z, C_l) volumes to laser 0 by 3D phase
     correlation of the logs of their channel sums, each shift read to the
     host once, and concatenate the channels: (X, Y, Z, C) in the first
@@ -110,16 +125,18 @@ def register_volume_stack(volume_stack, device=None, shifts=None):
     Each laser is written, shifted, into its channel slice of one
     preallocated cube and let go of once its log sum and shift are done.
     Pass ``volume_stack`` as a list to hand the volumes over: it is
-    emptied, so only one input volume is alive beside the cube. The
-    volumes may be host arrays; each goes to ``device`` (default: the
-    first volume's) in its turn. ``shifts``, a list, receives each laser's
+    emptied, so only one input volume is alive beside the cube. The cube
+    lies on the first volume's device if that is a tensor, else on
+    ``device`` (the card unless the caller names the CPU); each volume
+    goes there in its turn. ``shifts``, a list, receives each laser's
     (x, y, z) shift as ints (laser 0's is zeros)."""
     vols = volume_stack if isinstance(volume_stack, list) \
         else list(volume_stack)
     first = torch.as_tensor(vols[0])
     x, y, z = first.shape[:3]
     dtype = first.dtype
-    dev = first.device if device is None else torch.device(device)
+    dev = first.device if isinstance(vols[0], torch.Tensor) \
+        else torch.device(device)
     del first
     channels = sum(v.shape[3] for v in vols)
     out = torch.empty((x, y, z, channels), dtype=dtype, device=dev)
@@ -274,6 +291,27 @@ def _global_seeds(enhanced: torch.Tensor, thr_seed,
     return morph.binary_fill_holes(interior, 1, max_run)
 
 
+def _global_seeds_or_none(enhanced: torch.Tensor, thr_seed):
+    """_global_seeds, or None when the allocator runs out of memory in it:
+    the caller then seeds inside each tile, on the same device with the
+    same kernels. Only an out-of-memory error is taken; any other
+    propagates."""
+    try:
+        seeds = _global_seeds(enhanced, thr_seed)
+        # one voxel read to the host: an error of the queued work surfaces
+        # here, inside the try
+        bool(seeds[0, 0, 0])
+        return seeds
+    except Exception as e:  # noqa: BLE001 - filtered by is_oom_error
+        if not oom.is_oom_error(e):
+            raise
+    # past the handler the error and its traceback, which pinned the failed
+    # attempt's tensors, are gone
+    oom.log.warning("global seeds OOM -> in-tile seeds")
+    oom.empty_cache()
+    return None
+
+
 # ---------------------------------------------------------------------------
 # The margin-tiled sweep
 # ---------------------------------------------------------------------------
@@ -307,37 +345,55 @@ def _tile_body(enh, bkg, seeds_mask, thr_fg, statics, shapes):
     return out, present, planes
 
 
+def _segment_one_tile(enh, bkg, thresholds, statics, shapes):
+    """The tile body with the slab's own seeds (when the global mask is
+    not built): interior at max(thr_int, thr_fg), which keeps it inside
+    the foreground, opening, fill-holes. The slab's faces are border to
+    the fill, so the seeds are the global mask's only for structures
+    narrower than the margin, as in the JAX package."""
+    thr_fg, thr_int = thresholds
+    enh = enh.to(torch.float32)
+    interior = (enh >= torch.maximum(thr_int, thr_fg)) & (enh > 0)
+    interior = morph.binary_opening(interior)
+    seeds_mask = morph.binary_fill_holes(interior, 1, 64)
+    return _tile_body(enh, bkg, seeds_mask, thr_fg, statics, shapes)
+
+
 def _segment_one_tile_seeded(enh, bkg, seeds_mask, thr_fg, statics, shapes):
     """The tile body with the seed mask from _global_seeds."""
     return _tile_body(enh.to(torch.float32), bkg, seeds_mask, thr_fg,
                       statics, shapes)
 
 
-def _segment_tile_at_seeded(enhanced_p, bkg_p, seeds_p, thr_fg, start: int,
-                            statics, shapes):
+def _segment_tile_at(enhanced_p, bkg_p, seeds_p, thresholds, start: int,
+                     statics, shapes):
     """Slab [start, start + tile_x + 2 margin) of the padded (x, Z, Y)
-    volumes, segmented."""
+    volumes, segmented with the global seeds' slab, or its own seeds where
+    ``seeds_p`` is None. ``thresholds`` is (thr_fg, thr_int)."""
     tile_x, margin = shapes
     sl = slice(start, start + tile_x + 2 * margin)
+    if seeds_p is None:
+        return _segment_one_tile(enhanced_p[sl], bkg_p[sl], thresholds,
+                                 statics, shapes)
     return _segment_one_tile_seeded(enhanced_p[sl], bkg_p[sl], seeds_p[sl],
-                                    thr_fg, statics, shapes)
+                                    thresholds[0], statics, shapes)
 
 
-def _tiled_segment_pass(boxes, thr_fg, statics, shapes,
+def _tiled_segment_pass(boxes, thresholds, statics, shapes,
                         log=lambda m: None, tiles=None):
     """Host loop over the tiles (``tiles``, default all; an index past
     the last tile replays the last). ``boxes`` is [(enhanced_p, bkg_p,
-    seeds_p)] in the (x, Z, Y) layout; it is emptied so the padded inputs
-    free when the loop ends. Returns (list of (tile_x, Z, Y) label tiles,
-    list of (tile_cap,) presence bitmaps, list of (2, Z, Y) boundary
+    seeds_p or None)] in the (x, Z, Y) layout; it is emptied so the padded
+    inputs free when the loop ends. Returns (list of (tile_x, Z, Y) label
+    tiles, list of (tile_cap,) presence bitmaps, list of (2, Z, Y) boundary
     planes)."""
     tile_x, margin, n_tiles = shapes
     enhanced_p, bkg_p, seeds_p = boxes.pop()
     outs, presents, planes = [], [], []
     for t in range(n_tiles) if tiles is None else tiles:
-        o, p, pl = _segment_tile_at_seeded(
-            enhanced_p, bkg_p, seeds_p, thr_fg, min(t, n_tiles - 1) * tile_x,
-            statics, (tile_x, margin))
+        o, p, pl = _segment_tile_at(
+            enhanced_p, bkg_p, seeds_p, thresholds,
+            min(t, n_tiles - 1) * tile_x, statics, (tile_x, margin))
         outs.append(o)
         presents.append(p)
         planes.append(pl)
@@ -345,7 +401,7 @@ def _tiled_segment_pass(boxes, thr_fg, statics, shapes,
     return outs, presents, planes
 
 
-def _tiled_segment_pass_mesh(boxes, thr_fg, statics, shapes, mesh,
+def _tiled_segment_pass_mesh(boxes, thresholds, statics, shapes, mesh,
                              log=lambda m: None):
     """_tiled_segment_pass over the mesh's 'fov' ranks: the tile count
     pads to a multiple of the dim's size by replaying the last slab; each
@@ -359,7 +415,7 @@ def _tiled_segment_pass_mesh(boxes, thr_fg, statics, shapes, mesh,
     n_dev = meshlib.dim_size(mesh, "fov")
     per = -(-n_tiles // n_dev)
     lo = mesh.get_local_rank("fov") * per
-    own = _tiled_segment_pass(boxes, thr_fg, statics, shapes, log,
+    own = _tiled_segment_pass(boxes, thresholds, statics, shapes, log,
                               range(lo, lo + per))
     return tuple(list(meshlib.all_gather_rows(torch.stack(c), mesh)
                       [:n_tiles]) for c in own)
@@ -400,7 +456,8 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
                      margin: int = 64, tile_cap: int = 8192,
                      chunk_xy: int = 128, out_layout: str = "xyz",
                      scan_cap: int = 0, bf16: bool | None = None,
-                     log=lambda m: None, mesh=None):
+                     log=lambda m: None, mesh=None,
+                     global_seeds: bool = True):
     """3D segmentation of a channel-summed (X, Y, Z) volume as a
     margin-tiled sweep along x.
 
@@ -411,9 +468,13 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     by both tiles; the owning tile's private (uncropped) labels on the
     boundary plane pair show that the two ids are one cell, and a host
     union-find merges them (the smaller global id is the root). Exact for
-    every structure narrower than ``margin``. ``scan_cap`` caps the tile id
-    floods' scan doubling (0 = the margin); it changes the number of
-    fixpoint rounds, never the result. ``bf16`` is the 3D LP-CV's sample
+    every structure narrower than ``margin``. With ``global_seeds=False``,
+    or when the global seed mask runs the allocator out of memory (one
+    warning on utils/oom's logger, the allocator's cache emptied), each
+    tile seeds its own slab instead, with the same result for such
+    structures. ``scan_cap`` caps the tile id floods' scan doubling (0 =
+    the margin); it changes the number of fixpoint rounds, never the
+    result. ``bf16`` is the 3D LP-CV's sample
     precision (None: bf16 on CUDA, f32 on the CPU). With ``mesh`` (a
     parallel/mesh DeviceMesh), every rank calls this with the same volume
     and the tiles are swept over the mesh's 'fov' ranks
@@ -442,23 +503,27 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     c2, c3 = km.kmeans1d_centers_multi(enhanced, (2, 3), cfg.kmeans_iters)
     thr_fg = (c2[-1] + c2[-2]) / 2.0
     thr_int = (c3[-1] + c3[-2]) / 2.0
-    seeds = _global_seeds(enhanced, torch.maximum(thr_fg, thr_int))
-    log("global seeds")
+    seeds = None
+    if global_seeds:
+        seeds = _global_seeds_or_none(enhanced,
+                                      torch.maximum(thr_fg, thr_int))
+        log("global seeds" if seeds is not None else "in-tile seeds")
 
     n_tiles = -(-x // tile_x)
     pad_r = n_tiles * tile_x - x + margin
     box = [(_edge_pad_x(enhanced, margin, pad_r),
             _edge_pad_x(bkg, margin, pad_r),
-            _edge_pad_x(seeds, margin, pad_r))]
+            None if seeds is None else _edge_pad_x(seeds, margin, pad_r))]
     del enhanced, bkg, seeds
     statics = (cfg.lp_seed_min_size, cfg.ccl_max_iters,
                cfg.watershed_max_iters, tile_cap, scan_cap)
     if mesh is None:
         tiles_seg, presents, planes = _tiled_segment_pass(
-            box, thr_fg, statics, (tile_x, margin, n_tiles), log)
+            box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles), log)
     else:
         tiles_seg, presents, planes = _tiled_segment_pass_mesh(
-            box, thr_fg, statics, (tile_x, margin, n_tiles), mesh, log)
+            box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles),
+            mesh, log)
 
     # host union-find; the global id of tile t's local rank r is
     # t * tile_cap + r
@@ -507,6 +572,51 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     if out_layout != "xzy":
         seg = seg.permute(0, 2, 1).contiguous()
     return seg, n_cells, None
+
+
+def warmup_pipeline(shape, cfg: SegmentationConfig = SegmentationConfig(),
+                    max_cells: int = 16384, tile_x: int = 360,
+                    margin: int = 64, tile_cap: int = 8192,
+                    z_chunk: int = 2, n_channels: int | None = None,
+                    measure_width: int = 512, measure_runner=None,
+                    device=torch.device("cuda")):
+    """Build the kernels a volume pass of ``shape`` launches (B3-B5 and
+    B6 for cfg's stencil: the kernel library, plus B6's own library when
+    the stencil is not the default (11, 9, 9)) in a background thread, so
+    that the caller can read and stitch meanwhile, and load them into this
+    process. Allocates nothing on the device. Returns ``join()``, which
+    waits for the thread and raises its build error (a missing nvcc or the
+    compiler's output). On the CPU there is nothing to build.
+
+    The other arguments are the JAX function's: kernels are built for
+    every shape, so they change nothing here."""
+    import threading
+
+    from hiprfish_tpu_torch.kernels import _build
+
+    stencil = (cfg.patch_size, cfg.theta_range, cfg.phi_range)
+    errors = []
+
+    def build():
+        try:
+            _build.load()
+            if stencil != (11, 9, 9):
+                _build.load_lpcv3d(*stencil)
+        except BaseException as e:  # noqa: BLE001 - raised by join()
+            errors.append(e)
+
+    thread = None
+    if torch.device(device).type == "cuda":
+        thread = threading.Thread(target=build, daemon=True)
+        thread.start()
+
+    def join():
+        if thread is not None:
+            thread.join()
+        if errors:
+            raise errors[0]
+
+    return join
 
 
 # ---------------------------------------------------------------------------
@@ -568,9 +678,11 @@ def segment_3d_from_sum(vol_sum,
 
 def segment_3d(volume_stack, cfg: SegmentationConfig = SegmentationConfig(),
                max_cells: int = 16384, chunk_xy: int = 128,
-               bf16: bool | None = None, device=None, shifts=None):
+               bf16: bool | None = None, device=torch.device("cuda"),
+               shifts=None):
     """3D LP-CV segmentation of per-laser (X, Y, Z, C_l) volumes:
-    register_volume_stack (to ``device``, default the first volume's;
+    register_volume_stack (host volumes go to ``device``, the card unless
+    the caller names the CPU, tensors stay on the first one's device;
     ``shifts`` receives the shifts; a list of volumes is emptied), the
     channel sum in the reference's order, segment_3d_from_sum. Returns
     (labels (X, Y, Z) int32, n_cells int, registered (X, Y, Z, C),
@@ -707,10 +819,17 @@ def _load_stacks(sample) -> list:
 
 def segment_zstack_slice(image_stack_4d, z: int,
                          cfg: SegmentationConfig = SegmentationConfig(),
-                         max_cells: int = 4096):
+                         max_cells: int = 4096,
+                         device=torch.device("cuda")):
     """(Segmentation2D, plane): the biofilm LP-CV engine on plane ``z`` of
-    a registered (X, Y, Z, C) stack."""
-    plane = torch.as_tensor(image_stack_4d)[:, :, z, :]
+    a registered (X, Y, Z, C) stack. A host stack's plane goes to
+    ``device`` (the card unless the caller names the CPU); a tensor's
+    stays on its device."""
+    if isinstance(image_stack_4d, torch.Tensor):
+        plane = image_stack_4d[:, :, z, :]
+    else:
+        plane = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(image_stack_4d)[:, :, z, :]), device=device)
     return segment2d.segment_lpcv_from_registered(plane, cfg, max_cells,
                                                   "biofilm"), plane
 

@@ -21,6 +21,8 @@ from hiprfish_tpu_torch.models.artifacts import load_classifier as tload
 from hiprfish_tpu_torch.models.classifier import (CheckHead, CheckHeads,
                                                   train_classifier)
 from hiprfish_tpu_torch.pipeline import fused as tfused
+from hiprfish_tpu_torch.pipeline import segment2d as tseg2d
+from hiprfish_tpu_torch.pipeline import segment3d as tseg3d
 from hiprfish_tpu_torch.utils import synthetic3d as t3
 
 torch.set_num_threads(1)
@@ -211,6 +213,19 @@ def _train_with_no_device_named():
     return torch.empty(0, device=gen.device)
 
 
+def _host_planes(layout, size=64):
+    """A FOV of host arrays, one (size, size, C_l) plane per laser."""
+    rng = np.random.RandomState(1)
+    return [rng.rand(size, size, hi - lo).astype(np.float32)
+            for lo, hi in layout.blocks]
+
+
+def _host_volumes(n=2):
+    """n host (X, Y, Z, C) volumes."""
+    rng = np.random.RandomState(2)
+    return [rng.rand(24, 20, 16, 3).astype(np.float32) for _ in range(n)]
+
+
 @pytest.mark.parametrize("make", [
     lambda: tfused.classifier_from_numpy(tload(FIXTURE))[0]
     ["train_features"],
@@ -221,8 +236,17 @@ def _train_with_no_device_named():
     lambda: t3.truth_chunk(t3.VolumeSpec(**_SPEC), 63, 0, 2)[0],
     lambda: t3.build_sum_volume(t3.VolumeSpec(**_SPEC), 63, np.ones(63),
                                 z_chunk=4),
+    # the entry points that take host arrays put them on the card
+    lambda: tseg2d.segment_ecoli(_host_planes(TEN_BIT)).segmentation,
+    lambda: tseg2d.segment_lpcv(_host_planes(SEVEN_BIT)).segmentation,
+    lambda: tseg3d.register_volume_stack(_host_volumes()),
+    lambda: tseg3d.segment_3d(_host_volumes(), max_cells=64)[0],
+    lambda: tseg3d.register_tstack_average(_host_volumes()),
+    lambda: tseg3d.segment_zstack_slice(_host_volumes(1)[0], 3)[1],
 ], ids=["classifier_from_numpy", "CheckHead.from_numpy", "CheckHeads",
-        "train_classifier", "truth_chunk", "build_sum_volume"])
+        "train_classifier", "truth_chunk", "build_sum_volume",
+        "segment_ecoli", "segment_lpcv", "register_volume_stack",
+        "segment_3d", "register_tstack_average", "segment_zstack_slice"])
 def test_entry_points_default_to_the_card(make):
     # with no device named they ask for the card: on a machine without one
     # they raise rather than quietly run on the CPU

@@ -391,6 +391,41 @@ def test_lpcv3d_kernel_xyz_layout(cuda):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
 
+def _edge_pad(t: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t[None, None], (pad,) * (2 * t.ndim),
+                                   mode="replicate")[0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_lpcv3d_kernel_matches_stencil_form(cuda, bf16):
+    # a second reference: the combine of line_profile_3d's normalised
+    # centres on the edge-padded (x, y, z) volume, min and max in bf16 in
+    # the bf16 mode, as the kernel's samples
+    vol = torch.from_numpy(_volume((24, 17, 40), 7)).to(cuda)   # (X, Z, Y)
+    out = line_profile.lp_cv_enhance_3d(vol, bf16=bf16, layout="xzy")
+    pad = _edge_pad(vol.permute(0, 2, 1), 5)
+    if bf16:
+        pad = pad.to(torch.bfloat16)
+    ref = line_profile._lp_cv_combine(line_profile.line_profile_3d(pad))
+    torch.testing.assert_close(out, ref.permute(0, 2, 1), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5)])
+def test_lpcv2d_kernel_matches_stencil_form(cuda, patch, phi):
+    # a second reference: the quartile combine of line_profile_2d's
+    # min-max normalised centres
+    img = torch.from_numpy(_smooth((96, 160), 8)).to(cuda)
+    out = line_profile.lp_cv_enhance_2d(img, patch, phi)
+    prof = line_profile.line_profile_2d(_edge_pad(img, (patch - 1) // 2),
+                                        patch, phi)
+    lo, hi = prof.min(dim=-1).values, prof.max(dim=-1).values
+    rnc = (prof[..., (patch - 1) // 2] - lo) / torch.clamp(hi - lo, min=1e-8)
+    torch.testing.assert_close(out, line_profile._lp_cv_combine(rnc),
+                               rtol=0, atol=1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stats_cm_kernel_matches_plain(cuda, dtype):

@@ -1,5 +1,8 @@
-"""Port parity: 2D LP-CV (kernel B2's plain version) and its offset table
-vs the JAX package on the CPU."""
+"""Port parity: 2D LP-CV (kernel B2's plain version) and its offset table,
+and the stencil forms line_profile_2d, line_profile_3d,
+line_profile_3d_full and neighbor_average, vs the JAX package on the
+CPU (and line_profile_2d vs the reference oracle's Cython transcription).
+"""
 
 from pathlib import Path
 
@@ -13,6 +16,7 @@ import torch
 from hiprfish_tpu.ops import line_profile as jlp
 from hiprfish_tpu.ops import lp3d_pallas
 from hiprfish_tpu_torch.ops import line_profile as tlp
+from ref_oracle.lp2d import line_profile_2d_v2 as lp_oracle
 
 torch.set_num_threads(1)
 
@@ -100,3 +104,73 @@ def test_kernel_selection_networks(macro, outputs):
     pairs = [(int(a), int(b))
              for a, b in re.findall(r"CX\((\d+), (\d+)\)", body)]
     assert pairs == list(lp3d_pallas.selection_network(9, outputs))
+
+
+def _padded(shape, seed):
+    return np.random.RandomState(seed).rand(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("patch,phi", [(11, 9), (7, 5), (15, 12)])
+def test_line_profile_2d_equals_jax_and_oracle(patch, phi):
+    img = _padded((30 + patch - 1, 41 + patch - 1), 1)
+    out = tlp.line_profile_2d(torch.from_numpy(img), patch, phi).numpy()
+    ref = np.asarray(jlp.line_profile_2d(jnp.asarray(img), patch, phi))
+    assert out.shape == (30, 41, phi, patch) and out.dtype == np.float32
+    # a gather: bitwise
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, lp_oracle(img, patch, phi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", [(11, 9, 9), (7, 5, 6)])
+def test_line_profile_3d_equals_jax(dtype, cfg):
+    vol = _padded((12 + cfg[0] - 1, 9 + cfg[0] - 1, 6 + cfg[0] - 1), 2)
+    t = torch.from_numpy(vol).to(dtype)
+    j = jnp.asarray(vol).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                else jnp.float32)
+    out = tlp.line_profile_3d(t, *cfg).numpy()
+    ref = np.asarray(jlp.line_profile_3d(j, *cfg))
+    assert out.shape == (12, 9, 6, (cfg[1] - 1) * cfg[2])
+    assert out.dtype == ref.dtype == np.float32
+    # min and max in the input's precision, the ratio in f32
+    np.testing.assert_array_max_ulp(out, ref, 1)
+
+
+def test_line_profile_3d_full_equals_jax():
+    vol = _padded((18, 17, 16), 3)
+    out = tlp.line_profile_3d_full(torch.from_numpy(vol)).numpy()
+    ref = np.asarray(jlp.line_profile_3d_full(jnp.asarray(vol)))
+    assert out.shape == (8, 7, 6, 72, 11)
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("patch", [11, 5])
+def test_neighbor_average_equals_jax(patch):
+    vol = _padded((30 + 2 * (patch - 1), 23 + 2 * (patch - 1),
+                   19 + 2 * (patch - 1)), 4)
+    out = tlp.neighbor_average(torch.from_numpy(vol), patch).numpy()
+    ref = np.asarray(jlp.neighbor_average(jnp.asarray(vol), patch))
+    assert out.shape == (30, 23, 19, patch - 1)
+    # the reference CPU program's cumulative sums and its multiply by the
+    # f32 reciprocal of each box's size: bitwise
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_stencil_forms_combine_to_the_enhancement():
+    # _lp_cv_combine of the centre-normalised profiles is the 3D LP-CV;
+    # of the 2D profiles' normalised centres, the 2D one
+    vol = _padded((14, 12, 10), 5)
+    t = torch.from_numpy(vol)
+    pad = torch.nn.functional.pad(t[None, None], (5,) * 6,
+                                  mode="replicate")[0, 0]
+    np.testing.assert_allclose(
+        tlp._lp_cv_combine(tlp.line_profile_3d(pad)).numpy(),
+        tlp.lp_cv_enhance_3d_plain(t).numpy(), rtol=0, atol=1e-6)
+    img = torch.from_numpy(_padded((40, 33), 6))
+    prof = tlp.line_profile_2d(torch.nn.functional.pad(
+        img[None, None], (5,) * 4, mode="replicate")[0, 0])
+    lo, hi = prof.min(dim=-1).values, prof.max(dim=-1).values
+    rnc = (prof[..., 5] - lo) / torch.clamp(hi - lo, min=1e-8)
+    np.testing.assert_allclose(tlp._lp_cv_combine(rnc).numpy(),
+                               tlp.lp_cv_enhance_2d_plain(img).numpy(),
+                               rtol=0, atol=1e-6)

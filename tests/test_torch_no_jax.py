@@ -1,7 +1,7 @@
 """The port never imports jax nor the JAX package: import every module of
 it and run its CPU slices (the 7-bit step; the 10-bit step, host engine
 and measurement; the command lines, biofilm -d 2, -z and -d 3 and the
-trainer among them) in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
+trainer among them, and the warm-up command) in a subprocess where any ``import jax`` or ``import hiprfish_tpu`` raises
 (sys.modules[...] = None). The command lines run with pandas, matplotlib and imageio blocked
 too, which the GPU machine does not have; the collectors and the workflow
 driver as well, and a figure call then raises ImportError. The CZI readers
@@ -392,6 +392,20 @@ print("cells", *calls)
 """
 
 
+SCRIPT_WARMUP = PREAMBLE + r"""
+import contextlib, io
+from hiprfish_tpu_torch.cli import warmup
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    rc = warmup.main(["--family", "ecoli", "multispecies", "3d", "--size",
+                      "64", "--device", "cpu"])
+assert rc == 0 and "warmup complete" in err.getvalue(), err.getvalue()
+assert not {"jax", "hiprfish_tpu"} & {m.split(".")[0] for m in sys.modules
+                                      if sys.modules[m] is not None}
+print("cells", err.getvalue().count("# "))
+"""
+
+
 def _run(script, fixture_name, *args):
     fixture = os.path.join(ROOT, "tests", "fixtures", fixture_name)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -470,3 +484,9 @@ def test_port_legacy_classify_routes_run_without_sklearn_joblib(tmp_path):
     # pynndescent, numba and pandas blocked: the held-out calls
     out = _run(SCRIPT_LEGACY, "legacy_stacks", str(tmp_path))
     assert [float(v) for v in out] == [1.0, 1.0]
+
+
+def test_port_warmup_runs_without_jax():
+    # the three families at 64^2 on the CPU and the closing line
+    out = _run(SCRIPT_WARMUP, "torch_port_clf_7b_127x50.npz")
+    assert int(out[0]) == 4

@@ -22,6 +22,8 @@ writes its results, and each case below holds every rank's copy:
   and the JAX test's accuracy > 0.9 after 200;
 - segment_3d_tiled(mesh=) on tests/test_parallel.py's 128 x 48 x 24
   volume: the labels of the port's host sweep and of the JAX host sweep;
+  with global_seeds=False (each tile seeds its own slab, the replayed
+  last slab too), the labels of the port's one-process in-tile sweep;
 - measure_volume_zsharded: within 2e-6 of the JAX function on every
   label (row 0 is zero in the port, which leaves the background out, as
   its measure_volume_streamed does), and the ragged-Z ValueError.
@@ -144,6 +146,10 @@ def inputs(tmp_path_factory):
     seg_t, n_t, _ = segment3d.segment_3d_tiled(
         torch.from_numpy(vol), SegmentationConfig(), **TILED)
     ref["seg3d"] = (np.asarray(seg_j), int(n_j), seg_t.numpy(), int(n_t))
+    seg_in, n_in, _ = segment3d.segment_3d_tiled(
+        torch.from_numpy(vol), SegmentationConfig(), global_seeds=False,
+        **TILED)
+    ref["seg3d_in_tile"] = (seg_in.numpy(), int(n_in))
     # the z-sharded measurement (tests/test_parallel.py's volume)
     zr = np.random.RandomState(11)
     seg = np.zeros((40, 32, 16), np.int32)
@@ -273,6 +279,16 @@ def test_segment_3d_tiled_mesh_matches_host_sweeps(world, inputs):
     for res in torch_world.load(out, "seg3d", n):
         assert int(res["n_cells"]) == n_t
         np.testing.assert_array_equal(res["seg"], seg_t)
+
+
+def test_segment_3d_tiled_mesh_in_tile_seeds_matches_host_sweep(world,
+                                                               inputs):
+    out, n = world
+    seg_in, n_in = inputs[1]["seg3d_in_tile"]
+    assert n_in > 0
+    for res in torch_world.load(out, "seg3d", n):
+        assert int(res["n_in_tile"]) == n_in
+        np.testing.assert_array_equal(res["seg_in_tile"], seg_in)
 
 
 def test_measure_zsharded_matches_jax(world, inputs, mesh8):

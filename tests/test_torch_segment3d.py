@@ -1,6 +1,8 @@
 """Port parity: the 3D volume path (stitch, 3D registration, KMeans
 thresholds, the margin-tiled segmentation with its boundary union-find,
-streamed measurement, classification) vs the JAX package on the CPU.
+with global or in-tile seeds and the fallback from one to the other on an
+out-of-memory error, streamed measurement, classification) vs the JAX
+package on the CPU.
 
 The JAX tiled run takes ~10 s here, so it runs once per module.
 """
@@ -79,19 +81,23 @@ def jax_tiled(volume):
     return np.asarray(seg), int(n)
 
 
-@pytest.mark.parametrize("out_layout,scan_cap,tile_x", [
-    ("xyz", 0, 48), ("xzy", 0, 48), ("xyz", 8, 48),
+@pytest.mark.parametrize("out_layout,scan_cap,tile_x,global_seeds", [
+    ("xyz", 0, 48, True), ("xzy", 0, 48, True), ("xyz", 8, 48, True),
     # boundaries at x = 36, 72, 108: the middle cell column (x 66..78)
     # straddles x = 72, so the union-find merges its two halves
-    ("xyz", 0, 36)])
+    ("xyz", 0, 36, True),
+    # each tile seeds its own slab: every cell is narrower than the
+    # margin, so the labels are the global seeds' (the JAX package holds
+    # its two seed modes equal, tests/test_biofilm_and_3d.py)
+    ("xyz", 0, 48, False), ("xyz", 0, 36, False)])
 def test_segment_3d_tiled_matches_jax(volume, jax_tiled, out_layout,
-                                      scan_cap, tile_x):
+                                      scan_cap, tile_x, global_seeds):
     _, _, vol_sum = volume
     seg_j, n_j = jax_tiled
     seg, n, enh = tseg3d.segment_3d_tiled(
         [torch.from_numpy(vol_sum.copy())],
         SegmentationConfig(kmeans_iters=20),
-        out_layout=out_layout, scan_cap=scan_cap,
+        out_layout=out_layout, scan_cap=scan_cap, global_seeds=global_seeds,
         **dict(TILED, tile_x=tile_x))
     assert enh is None and n == n_j == len(CODES)
     seg = seg.numpy()
@@ -103,6 +109,58 @@ def test_segment_3d_tiled_matches_jax(volume, jax_tiled, out_layout,
     if tile_x == 36:
         both = (seg[71] > 0) & (seg[71] == seg[72])
         assert both.sum() > 10
+
+
+def _raise(error):
+    def seeds(*args, **kwargs):
+        raise error
+    return seeds
+
+
+def test_global_seeds_oom_falls_back_to_in_tile_seeds(volume, jax_tiled,
+                                                      monkeypatch, caplog):
+    # an allocator OOM in the global seed mask: each tile seeds its own
+    # slab, one warning, the same labels
+    _, _, vol_sum = volume
+    seg_j, n_j = jax_tiled
+    monkeypatch.setattr(tseg3d, "_global_seeds", _raise(
+        torch.OutOfMemoryError("CUDA out of memory. Tried to allocate")))
+    with caplog.at_level("WARNING", logger="hiprfish_tpu_torch.oom"):
+        seg, n, _ = tseg3d.segment_3d_tiled(
+            torch.from_numpy(vol_sum.copy()),
+            SegmentationConfig(kmeans_iters=20), **TILED)
+    assert [r.getMessage() for r in caplog.records] == [
+        "global seeds OOM -> in-tile seeds"]
+    assert n == n_j
+    np.testing.assert_array_equal(seg.numpy(), seg_j)
+
+
+def test_global_seeds_other_errors_propagate(volume, monkeypatch, caplog):
+    _, _, vol_sum = volume
+    monkeypatch.setattr(tseg3d, "_global_seeds",
+                        _raise(ValueError("not a memory error")))
+    with pytest.raises(ValueError, match="not a memory error"):
+        tseg3d.segment_3d_tiled(torch.from_numpy(vol_sum.copy()),
+                                SegmentationConfig(kmeans_iters=20),
+                                **TILED)
+    assert not caplog.records
+
+
+def test_warmup_pipeline_builds_nothing_on_the_cpu():
+    assert tseg3d.warmup_pipeline((2020, 2020, 170), device="cpu")() is None
+
+
+def test_warmup_pipeline_join_raises_the_build_error(monkeypatch):
+    from hiprfish_tpu_torch.kernels import _build
+
+    def fail():
+        raise RuntimeError("nvcc failed (rc 1): nvcc ...\nerror: boom")
+
+    monkeypatch.setattr(_build, "load", fail)
+    join = tseg3d.warmup_pipeline((64, 64, 16), SegmentationConfig(),
+                                  device="cuda")
+    with pytest.raises(RuntimeError, match="boom"):
+        join()
 
 
 def test_boundary_pair_codes_matches_jax_random_case():

@@ -220,10 +220,16 @@ def check_seg3d(job, rank):
     from hiprfish_tpu_torch.pipeline import segment3d
 
     vol = np.load(os.path.join(job["inputs"], "vol3d.npy"))
+    mesh = _mesh(job)
     seg, n, _ = segment3d.segment_3d_tiled(
-        torch.from_numpy(vol), SegmentationConfig(), mesh=_mesh(job),
+        torch.from_numpy(vol), SegmentationConfig(), mesh=mesh,
         **job["tiled"])
-    _save(job, "seg3d", rank, seg=seg.numpy(), n_cells=np.int64(n))
+    # each tile seeding its own slab (the replayed last slab too)
+    seg_in, n_in, _ = segment3d.segment_3d_tiled(
+        torch.from_numpy(vol), SegmentationConfig(), mesh=mesh,
+        global_seeds=False, **job["tiled"])
+    _save(job, "seg3d", rank, seg=seg.numpy(), n_cells=np.int64(n),
+          seg_in_tile=seg_in.numpy(), n_in_tile=np.int64(n_in))
 
 
 def check_zsharded(job, rank):
