@@ -4,8 +4,10 @@ hiprfish_tpu/ops/labeling.py).
 
 Every fixpoint loop keeps the reference's cap and exit rule: stop when an
 iteration changed nothing or after ``max_iters`` iterations. The change
-test reads one boolean back to the host per iteration (a sync per round);
-capturing the loop in a CUDA graph is later work.
+test reads one boolean back to the host per iteration (a sync per round,
+through ``utils.logging.host_wait``); capturing the loop in a CUDA graph is
+later work. Each run of a loop is a span (``flood.ccl``, ``flood.rank``,
+``flood.reach``) whose ``rounds`` is the loop's iteration count.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import itertools
 
 import torch
+
+from hiprfish_tpu_torch.utils.logging import host_wait, span
 
 _INF = 2**30
 
@@ -140,17 +144,19 @@ def _flood_reach_flat(seeds: torch.Tensor, mask: torch.Tensor,
               if sum(abs(o) for o in s) >= 2]
     reach = seeds & mask
     changed, it = True, 0
-    while changed and it < max_iters:
-        cur = reach
-        nb = cur
-        for off in shifts:
-            nb = nb | shifted(cur, off, False)
-        cur = mask & (cur | nb)
-        for axis in range(ndim):
-            cur = _run_or_scan(cur, mask, axis, False, max_run)
-            cur = _run_or_scan(cur, mask, axis, True, max_run)
-        changed = bool((cur != reach).any())  # host sync
-        reach, it = cur, it + 1
+    with span("flood.reach") as sp:
+        while changed and it < max_iters:
+            cur = reach
+            nb = cur
+            for off in shifts:
+                nb = nb | shifted(cur, off, False)
+            cur = mask & (cur | nb)
+            for axis in range(ndim):
+                cur = _run_or_scan(cur, mask, axis, False, max_run)
+                cur = _run_or_scan(cur, mask, axis, True, max_run)
+            changed = host_wait(bool, (cur != reach).any())  # host sync
+            reach, it = cur, it + 1
+        sp.set(rounds=it)
     return reach
 
 
@@ -178,9 +184,11 @@ def border_mask(shape, device=None) -> torch.Tensor:
 
 
 def _min_flood(init: torch.Tensor, mask: torch.Tensor, connectivity: int,
-               max_iters: int, max_run: int | None) -> torch.Tensor:
+               max_iters: int, max_run: int | None,
+               span_name: str = "flood.ccl") -> torch.Tensor:
     """Iterate neighbor-min + segmented min-scans to the fixed point (the
-    shared body of label and segstats.rank_labels)."""
+    shared body of label and segstats.rank_labels, whose runs are the
+    spans ``flood.ccl`` and ``flood.rank``)."""
     ndim = mask.ndim
     shifts = [s for s in _neighbor_shifts(ndim, connectivity)
               if sum(abs(o) for o in s) >= 2]
@@ -188,21 +196,23 @@ def _min_flood(init: torch.Tensor, mask: torch.Tensor, connectivity: int,
     inf = torch.full_like(init, _INF)
     lbl = init
     changed, it = True, 0
-    while changed and it < max_iters:
-        cur = lbl
-        if full_conn:
-            cur = torch.where(mask, _window_pool(cur, torch.minimum, _INF),
-                              inf)
-        else:
-            nb = cur
-            for off in shifts:
-                nb = torch.minimum(nb, shifted(cur, off, _INF))
-            cur = torch.where(mask, torch.minimum(cur, nb), inf)
-        for axis in range(ndim):
-            cur = _run_min_scan(cur, mask, axis, False, max_run)
-            cur = _run_min_scan(cur, mask, axis, True, max_run)
-        changed = bool((cur != lbl).any())  # host sync
-        lbl, it = cur, it + 1
+    with span(span_name) as sp:
+        while changed and it < max_iters:
+            cur = lbl
+            if full_conn:
+                cur = torch.where(mask,
+                                  _window_pool(cur, torch.minimum, _INF), inf)
+            else:
+                nb = cur
+                for off in shifts:
+                    nb = torch.minimum(nb, shifted(cur, off, _INF))
+                cur = torch.where(mask, torch.minimum(cur, nb), inf)
+            for axis in range(ndim):
+                cur = _run_min_scan(cur, mask, axis, False, max_run)
+                cur = _run_min_scan(cur, mask, axis, True, max_run)
+            changed = host_wait(bool, (cur != lbl).any())  # host sync
+            lbl, it = cur, it + 1
+        sp.set(rounds=it)
     return lbl
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from hiprfish_tpu_torch.utils.logging import host_wait
+
 
 def register_translation(reference: torch.Tensor,
                          moving: torch.Tensor) -> torch.Tensor:
@@ -32,7 +34,8 @@ def apply_shift_2d(image: torch.Tensor, shift):
 
     torch.roll takes host integers, so the shift is read back to the host
     (one sync per call)."""
-    sr, sc = (int(v) for v in torch.as_tensor(shift).tolist())
+    sr, sc = (int(v) for v in host_wait(torch.Tensor.tolist,
+                                        torch.as_tensor(shift)))
     h, w = image.shape[0], image.shape[1]
     rolled = torch.roll(image, shifts=(sr, sc), dims=(0, 1))
     rows = torch.arange(h, device=image.device)[:, None]

@@ -24,6 +24,7 @@ from hiprfish_tpu_torch import kernels
 from hiprfish_tpu_torch.ops import labeling as lab
 from hiprfish_tpu_torch.ops import morphology as morph
 from hiprfish_tpu_torch.ops.labeling import _INF, _min_flood
+from hiprfish_tpu_torch.utils.logging import host_wait
 
 
 def rank_labels(labels: torch.Tensor, connectivity: int = 2,
@@ -43,7 +44,8 @@ def rank_labels(labels: torch.Tensor, connectivity: int = 2,
     n = ranks_flat[-1]
     dense0 = torch.where(mask, ranks_flat.reshape(labels.shape),
                          torch.full_like(labels, _INF))
-    rank = _min_flood(dense0, mask, connectivity, max_iters, max_run)
+    rank = _min_flood(dense0, mask, connectivity, max_iters, max_run,
+                      "flood.rank")
     return torch.where(mask, rank, torch.zeros_like(rank)), n
 
 
@@ -184,7 +186,7 @@ def remove_small_holes_fast(mask: torch.Tensor, area_threshold: int = 64,
     cap = max(8, 4 * int(float(area_threshold) ** 0.5))
     seq, n = rank_labels(lab.label(holes, connectivity, max_iters, cap),
                          connectivity, max_iters, cap)
-    if int(n) < num_segments:
+    if host_wait(int, n) < num_segments:
         seqc = torch.clamp(seq, max=num_segments - 1)
         st = label_stats(seqc, None, num_segments)
         hole_tbl = (st.counts < area_threshold).to(torch.float32)

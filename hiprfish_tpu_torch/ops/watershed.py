@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from hiprfish_tpu_torch.ops.labeling import _neighbor_shifts, shifted
+from hiprfish_tpu_torch.utils.logging import host_wait, span
 
 _BIG = 3.4e38
 
@@ -20,7 +21,8 @@ def watershed(surface: torch.Tensor, markers: torch.Tensor,
     max(cost[q], surface[p]). Only a strictly better cost wins: the
     incumbent keeps ties, and an unlabelled pixel takes an equal cost.
     Stops when nothing changed or after ``max_iters`` iterations (one host
-    sync per iteration for the change test)."""
+    sync per iteration for the change test). The loop is the span
+    ``flood.watershed``, whose ``rounds`` is its iteration count."""
     surf = surface.to(torch.float32)
     if mask is None:
         mask = torch.ones(surf.shape, dtype=torch.bool, device=surf.device)
@@ -34,21 +36,25 @@ def watershed(surface: torch.Tensor, markers: torch.Tensor,
     cost = torch.where(seeded, surf, big)
     shifts = _neighbor_shifts(surf.ndim, connectivity)
     changed, it = True, 0
-    while changed and it < max_iters:
-        best_cost = cost
-        best_label = labels
-        for off in shifts:
-            nb_cost = shifted(cost, off, _BIG)
-            nb_label = shifted(labels, off, 0)
-            cand = torch.maximum(nb_cost, surf)
-            better = (nb_label > 0) & (
-                (cand < best_cost) | ((cand == best_cost) & (best_label == 0)))
-            best_cost = torch.where(better, cand, best_cost)
-            best_label = torch.where(better, nb_label, best_label)
-        new_labels = torch.where(seeded, markers,
-                                 torch.where(mask, best_label, zeros))
-        new_cost = torch.where(seeded, surf, torch.where(mask, best_cost, big))
-        changed = bool(((new_labels != labels).any()
-                        | (new_cost != cost).any()))  # host sync
-        labels, cost, it = new_labels, new_cost, it + 1
+    with span("flood.watershed") as sp:
+        while changed and it < max_iters:
+            best_cost = cost
+            best_label = labels
+            for off in shifts:
+                nb_cost = shifted(cost, off, _BIG)
+                nb_label = shifted(labels, off, 0)
+                cand = torch.maximum(nb_cost, surf)
+                better = (nb_label > 0) & (
+                    (cand < best_cost)
+                    | ((cand == best_cost) & (best_label == 0)))
+                best_cost = torch.where(better, cand, best_cost)
+                best_label = torch.where(better, nb_label, best_label)
+            new_labels = torch.where(seeded, markers,
+                                     torch.where(mask, best_label, zeros))
+            new_cost = torch.where(seeded, surf,
+                                   torch.where(mask, best_cost, big))
+            changed = host_wait(bool, (new_labels != labels).any()
+                                | (new_cost != cost).any())  # host sync
+            labels, cost, it = new_labels, new_cost, it + 1
+        sp.set(rounds=it)
     return labels

@@ -9,6 +9,14 @@ and relabel (B4) -> mean spectra -> check heads -> gated block-cosine kNN
 vote. It runs eagerly on the device of its inputs. Where the reference
 branched inside the compiled program (``lax.cond``, ``while_loop`` exit
 tests), the port reads a scalar back to the host and branches in Python.
+
+Each call is the span ``step`` over the stage spans ``register``,
+``denoise``, ``lpcv``, ``kmeans``, ``morphology``, ``markers``,
+``watershed``, ``stats`` and ``classify`` (``utils.logging.span``: on
+while a torch profiler records). The kernel entries are called through
+their modules (``dn.denoise_nl_means``, ``lp.lp_cv_enhance_2d``,
+``segstats.label_stats``, ``segstats.label_lookup``), so that a wrapper
+set on the module sees every call.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from hiprfish_tpu_torch.ops import morphology as morph
 from hiprfish_tpu_torch.ops import register as reg
 from hiprfish_tpu_torch.ops import segstats
 from hiprfish_tpu_torch.ops import watershed as ws
+from hiprfish_tpu_torch.utils.logging import host_wait, span
 
 
 class FovResult(NamedTuple):
@@ -47,65 +56,74 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
     """LP-CV segmentation of one FOV; ``stack`` is a tuple of per-laser
     (H, W, C_l) tensors. Returns (labels (H, W) int32, registered cube
     (H, W, C) in cfg.registered_dtype, or f32 when calibrated)."""
-    projections = [torch.sum(img, dim=2) for img in stack]
-    ref0 = projections[0]
-    c = cfg.register_crop
-    h, w = ref0.shape
-    if c and h > c and w > c:
-        r0, c0 = (h - c) // 2, (w - c) // 2
-        _crop = lambda im: im[r0:r0 + c, c0:c0 + c]  # noqa: E731
-    else:
-        _crop = lambda im: im  # noqa: E731
-    cref = _crop(ref0)
-    # The cube feeds only the per-cell spectral sums, so it is stored in
-    # cfg.registered_dtype (bf16 by default); the NLM/KMeans input is built
-    # from the f32 per-laser sums rolled by the same shifts.
-    reg_dt = getattr(torch, cfg.registered_dtype) if calibration is None \
-        else torch.float32
-    parts = [stack[0].to(reg_dt)]
-    fov_sum = projections[0]
-    for i in range(1, len(stack)):
-        s = reg.register_translation(cref, _crop(projections[i]))
-        if cfg.clamp_shift:
-            s = reg.clamp_shift(s, cfg.max_shift)
-        shifted, _ = reg.apply_shift_2d(stack[i].to(reg_dt), s)
-        parts.append(shifted)
-        fov_sum = fov_sum + reg.apply_shift_2d(projections[i], s)[0]
-    registered = torch.cat(parts, dim=2)
-    if calibration is not None:
-        registered = registered / calibration
-        fov_sum = torch.sum(registered, dim=2)
-    sum_norm = fov_sum / torch.clamp(torch.max(fov_sum), min=1e-12)
+    with span("register"):
+        projections = [torch.sum(img, dim=2) for img in stack]
+        ref0 = projections[0]
+        c = cfg.register_crop
+        h, w = ref0.shape
+        if c and h > c and w > c:
+            r0, c0 = (h - c) // 2, (w - c) // 2
+            _crop = lambda im: im[r0:r0 + c, c0:c0 + c]  # noqa: E731
+        else:
+            _crop = lambda im: im  # noqa: E731
+        cref = _crop(ref0)
+        # The cube feeds only the per-cell spectral sums, so it is stored
+        # in cfg.registered_dtype (bf16 by default); the NLM/KMeans input
+        # is built from the f32 per-laser sums rolled by the same shifts.
+        reg_dt = getattr(torch, cfg.registered_dtype) \
+            if calibration is None else torch.float32
+        parts = [stack[0].to(reg_dt)]
+        fov_sum = projections[0]
+        for i in range(1, len(stack)):
+            s = reg.register_translation(cref, _crop(projections[i]))
+            if cfg.clamp_shift:
+                s = reg.clamp_shift(s, cfg.max_shift)
+            shifted, _ = reg.apply_shift_2d(stack[i].to(reg_dt), s)
+            parts.append(shifted)
+            fov_sum = fov_sum + reg.apply_shift_2d(projections[i], s)[0]
+        registered = torch.cat(parts, dim=2)
+        if calibration is not None:
+            registered = registered / calibration
+            fov_sum = torch.sum(registered, dim=2)
+        sum_norm = fov_sum / torch.clamp(torch.max(fov_sum), min=1e-12)
     if denoise:
-        den = dn.denoise_nl_means(sum_norm, cfg.nlm_h, cfg.nlm_patch_size,
-                                  cfg.nlm_patch_distance)
+        with span("denoise"):
+            den = dn.denoise_nl_means(sum_norm, cfg.nlm_h,
+                                      cfg.nlm_patch_size,
+                                      cfg.nlm_patch_distance)
     else:
         den = sum_norm
-    enhanced = lp.lp_cv_enhance_2d(den, cfg.patch_size, cfg.phi_range)
+    with span("lpcv"):
+        enhanced = lp.lp_cv_enhance_2d(den, cfg.patch_size, cfg.phi_range)
 
-    bkg = km.brightest_cluster_mask(den, 2, cfg.kmeans_iters)
-    fg = km.brightest_cluster_mask(enhanced, 2, cfg.kmeans_iters) & bkg
-    # fill(opening(fg)) covers fill(fg) & opening: one border flood
-    seed_mask = morph.binary_fill_holes(morph.binary_opening(fg), 1, 64)
+    with span("kmeans"):
+        bkg = km.brightest_cluster_mask(den, 2, cfg.kmeans_iters)
+        fg = km.brightest_cluster_mask(enhanced, 2, cfg.kmeans_iters) & bkg
+    with span("morphology"):
+        # fill(opening(fg)) covers fill(fg) & opening: one border flood
+        seed_mask = morph.binary_fill_holes(morph.binary_opening(fg), 1, 64)
 
-    # rank the markers to sequential ids before flooding; small seeds are
-    # dropped after this single CCL by a per-label count pass
-    markers0 = lab.label(seed_mask, 2, cfg.ccl_max_iters, cfg.scan_cap)
-    markers_seq, _ = segstats.rank_labels(markers0, 2, cfg.ccl_max_iters,
-                                          cfg.scan_cap)
-    pre_segments = 2 * max_cells
-    markers_seq = torch.clamp(markers_seq, max=pre_segments - 1)
-    st = segstats.label_stats(markers_seq, None, pre_segments)
-    ids = torch.arange(pre_segments, dtype=torch.float32,
-                       device=markers_seq.device)
-    keep_tbl = torch.where(st.counts >= cfg.lp_seed_min_size, ids,
-                           torch.zeros_like(ids))
-    keep_tbl[0] = 0.0
-    markers = segstats.label_lookup(markers_seq, keep_tbl,
-                                    out_dtype=torch.int32) \
-        * bkg.to(torch.int32)
-    seg = ws.watershed(-(enhanced * bkg), markers, fg & bkg, 1,
-                       cfg.watershed_max_iters)
+    with span("markers"):
+        # rank the markers to sequential ids before flooding; small seeds
+        # are dropped after this single CCL by a per-label count pass
+        markers0 = lab.label(seed_mask, 2, cfg.ccl_max_iters, cfg.scan_cap)
+        markers_seq, _ = segstats.rank_labels(markers0, 2,
+                                              cfg.ccl_max_iters,
+                                              cfg.scan_cap)
+        pre_segments = 2 * max_cells
+        markers_seq = torch.clamp(markers_seq, max=pre_segments - 1)
+        st = segstats.label_stats(markers_seq, None, pre_segments)
+        ids = torch.arange(pre_segments, dtype=torch.float32,
+                           device=markers_seq.device)
+        keep_tbl = torch.where(st.counts >= cfg.lp_seed_min_size, ids,
+                               torch.zeros_like(ids))
+        keep_tbl[0] = 0.0
+        markers = segstats.label_lookup(markers_seq, keep_tbl,
+                                        out_dtype=torch.int32) \
+            * bkg.to(torch.int32)
+    with span("watershed"):
+        seg = ws.watershed(-(enhanced * bkg), markers, fg & bkg, 1,
+                           cfg.watershed_max_iters)
     return seg, registered
 
 
@@ -159,7 +177,7 @@ def classify_capped(spectra_rows, n_cells, cap, *clf_args):
     cells), zero-padded back to all rows; the full rows otherwise. The
     branch reads ``n_cells`` back to the host."""
     n = spectra_rows.shape[0]
-    if cap is None or cap >= n or int(n_cells) >= cap:
+    if cap is None or cap >= n or host_wait(int, n_cells) >= cap:
         return classify_device(spectra_rows, *clf_args)
     ci, mp = classify_device(spectra_rows[:cap], *clf_args)
     out_ci = torch.zeros((n,), dtype=ci.dtype, device=ci.device)
@@ -174,7 +192,7 @@ def _scatter_last(out: torch.Tensor, remap: torch.Tensor,
     """out[remap[i]] = rows[i] for every kept id i, in place; row 0 stays
     zero. Ids capped at out.shape[0] - 1 collide there, and the last one
     wins, as in the reference's in-order scatter."""
-    kept = torch.nonzero(keep).squeeze(1)
+    kept = host_wait(torch.nonzero, keep).squeeze(1)
     dest = remap[kept]
     last = torch.ones_like(dest, dtype=torch.bool)
     last[:-1] = dest[1:] != dest[:-1]
@@ -195,37 +213,42 @@ def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
     torch.backends.cudnn.allow_tf32 = False
     (n_classes, blocks, check_slice, n_channels, k, temperature,
      check_blocks) = clf_static
-    seg0, registered = segment_lpcv_device(
-        stack, clf_arrays.get("calibration"), cfg, max_cells, denoise)
-    # one pass gives every region's pixel count, border contact and
-    # spectral sum
-    pre_segments = 2 * max_cells
-    stats = segstats.label_stats(seg0, registered, pre_segments)
-    keep = (stats.counts >= cfg.lp_cell_min_size) & (stats.border_hits == 0)
-    keep[0] = False
-    final = torch.cumsum(keep.to(torch.int32), dim=0, dtype=torch.int32)
-    n_cells = final[-1]
-    remap = torch.where(keep, torch.clamp(final, max=max_cells - 1),
-                        torch.zeros_like(final))
-    seg = segstats.label_lookup(seg0, remap, out_dtype=torch.int32)
-    means = stats.sums / torch.clamp(stats.counts, min=1.0)[:, None]
-    avgint = torch.zeros((max_cells, means.shape[1]), dtype=torch.float32,
-                         device=means.device)
-    _scatter_last(avgint, remap, keep, means)
-    avgint_norm = avgint / torch.clamp(
-        torch.max(avgint, dim=1, keepdim=True).values, min=1e-12)
-    code_idx, max_prob = classify_capped(
-        avgint_norm, n_cells, classify_cap,
-        clf_arrays["check_heads"],
-        check_blocks,
-        clf_arrays.get("scaler_mean"),
-        clf_arrays.get("scaler_scale"),
-        clf_arrays["train_features"],
-        clf_arrays["train_labels"],
-        n_classes, blocks, check_slice, n_channels, k, temperature,
-    )
-    slots = torch.arange(max_cells, device=seg.device)
-    valid = (slots <= n_cells) & (slots > 0)
+    with span("step"):
+        seg0, registered = segment_lpcv_device(
+            stack, clf_arrays.get("calibration"), cfg, max_cells, denoise)
+        with span("stats"):
+            # one pass gives every region's pixel count, border contact
+            # and spectral sum
+            pre_segments = 2 * max_cells
+            stats = segstats.label_stats(seg0, registered, pre_segments)
+            keep = (stats.counts >= cfg.lp_cell_min_size) \
+                & (stats.border_hits == 0)
+            keep[0] = False
+            final = torch.cumsum(keep.to(torch.int32), dim=0,
+                                 dtype=torch.int32)
+            n_cells = final[-1]
+            remap = torch.where(keep, torch.clamp(final, max=max_cells - 1),
+                                torch.zeros_like(final))
+            seg = segstats.label_lookup(seg0, remap, out_dtype=torch.int32)
+            means = stats.sums / torch.clamp(stats.counts, min=1.0)[:, None]
+            avgint = torch.zeros((max_cells, means.shape[1]),
+                                 dtype=torch.float32, device=means.device)
+            _scatter_last(avgint, remap, keep, means)
+        with span("classify"):
+            avgint_norm = avgint / torch.clamp(
+                torch.max(avgint, dim=1, keepdim=True).values, min=1e-12)
+            code_idx, max_prob = classify_capped(
+                avgint_norm, n_cells, classify_cap,
+                clf_arrays["check_heads"],
+                check_blocks,
+                clf_arrays.get("scaler_mean"),
+                clf_arrays.get("scaler_scale"),
+                clf_arrays["train_features"],
+                clf_arrays["train_labels"],
+                n_classes, blocks, check_slice, n_channels, k, temperature,
+            )
+        slots = torch.arange(max_cells, device=seg.device)
+        valid = (slots <= n_cells) & (slots > 0)
     return FovResult(seg, n_cells, avgint, avgint_norm, code_idx, max_prob,
                      valid)
 

@@ -10,6 +10,11 @@ The size, border and minor-axis gates and the spectral measurement of the
 double-eroded cells are one more B3 pass, with moments and the eroded
 mask, over the watershed labels. ``fov_step_ecoli`` adds the row-max
 normalisation, the violet-derivative features and the 6-head classifier.
+
+Each ``fov_step_ecoli`` call is the span ``step`` over the stage spans
+``register``, ``kmeans``, ``small_holes``, ``morphology``, ``markers``,
+``watershed``, ``stats`` and ``classify`` (``utils.logging.span``: on
+while a torch profiler records).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from hiprfish_tpu_torch.ops import segstats
 from hiprfish_tpu_torch.ops import watershed as ws
 from hiprfish_tpu_torch.pipeline import fused
 from hiprfish_tpu_torch.pipeline.segment2d import _erode_labels_twice
+from hiprfish_tpu_torch.utils.logging import span
 
 
 def _register(stack, cfg: SegmentationConfig):
@@ -119,16 +125,31 @@ def segment_ecoli_device(stack, cfg: SegmentationConfig = SegmentationConfig(),
     """(seg, n_cells, registered, avgint) of a tuple of per-laser (H, W,
     C_l) float32 tensors on one device. ``avgint`` (max_cells, C) holds the
     mean spectrum of each cell's double-eroded interior, row 0 zero."""
-    registered, image_cn = _register(stack, cfg)
-    fg, interior = km.brightest_cluster_masks(image_cn, (2, 3),
-                                              cfg.kmeans_iters)
-    interior = segstats.remove_small_holes_fast(
-        interior, 64, flood_max_run=64, exact_fallback=False)
-    interior = morph.binary_opening(interior)
+    with span("register"):
+        registered, image_cn = _register(stack, cfg)
+    with span("kmeans"):
+        fg, interior = km.brightest_cluster_masks(image_cn, (2, 3),
+                                                  cfg.kmeans_iters)
+    with span("small_holes"):
+        interior = segstats.remove_small_holes_fast(
+            interior, 64, flood_max_run=64, exact_fallback=False)
+    with span("morphology"):
+        interior = morph.binary_opening(interior)
     pre_segments = 2 * max_cells
-    markers = _seed_markers(interior, cfg, pre_segments)
-    seg_ws = ws.watershed(-image_cn, markers, fg, 1, cfg.watershed_max_iters)
+    with span("markers"):
+        markers = _seed_markers(interior, cfg, pre_segments)
+    with span("watershed"):
+        seg_ws = ws.watershed(-image_cn, markers, fg, 1,
+                              cfg.watershed_max_iters)
+    with span("stats"):
+        return _gate_and_measure(seg_ws, registered, cfg, max_cells,
+                                 pre_segments)
 
+
+def _gate_and_measure(seg_ws, registered, cfg: SegmentationConfig,
+                      max_cells: int, pre_segments: int):
+    """segment_ecoli_device's last stage: (seg, n_cells, registered,
+    avgint) from the watershed labels."""
     # size/border filter, shape gate and the eroded cells' spectra in one
     # pass: the double-eroded image keeps its parent's ids, so its sums and
     # counts are masked columns of the pass over seg_ws
@@ -187,20 +208,22 @@ def fov_step_ecoli(stack, clf_arrays, cfg: SegmentationConfig,
     torch.backends.cudnn.allow_tf32 = False
     (n_classes, blocks, check_slice, n_channels, k, temperature,
      check_blocks) = clf_static
-    seg, n_cells, _, avgint = segment_ecoli_device(stack, cfg, max_cells)
-    avgint_norm = avgint / torch.clamp(
-        torch.max(avgint, dim=1, keepdim=True).values, min=1e-12)
-    code_idx, max_prob = fused.classify_capped(
-        violet_features(avgint_norm, blocks), n_cells, classify_cap,
-        clf_arrays["check_heads"],
-        check_blocks,
-        clf_arrays.get("scaler_mean"),
-        clf_arrays.get("scaler_scale"),
-        clf_arrays["train_features"],
-        clf_arrays["train_labels"],
-        n_classes, blocks, check_slice, n_channels, k, temperature,
-    )
-    slots = torch.arange(max_cells, device=seg.device)
-    valid = (slots <= n_cells) & (slots > 0)
+    with span("step"):
+        seg, n_cells, _, avgint = segment_ecoli_device(stack, cfg, max_cells)
+        with span("classify"):
+            avgint_norm = avgint / torch.clamp(
+                torch.max(avgint, dim=1, keepdim=True).values, min=1e-12)
+            code_idx, max_prob = fused.classify_capped(
+                violet_features(avgint_norm, blocks), n_cells, classify_cap,
+                clf_arrays["check_heads"],
+                check_blocks,
+                clf_arrays.get("scaler_mean"),
+                clf_arrays.get("scaler_scale"),
+                clf_arrays["train_features"],
+                clf_arrays["train_labels"],
+                n_classes, blocks, check_slice, n_channels, k, temperature,
+            )
+        slots = torch.arange(max_cells, device=seg.device)
+        valid = (slots <= n_cells) & (slots > 0)
     return fused.FovResult(seg, n_cells, avgint, avgint_norm, code_idx,
                            max_prob, valid)

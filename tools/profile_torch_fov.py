@@ -3,13 +3,19 @@ fov_step_ecoli, of its 3D volume pass, or of a measure command line, goes
 on one GPU.
 
     python tools/profile_torch_fov.py [--ecoli | --volume | --cli-measure
-                                       | --cli-multispecies] [--out PATH]
+                                       | --cli-multispecies
+                                       | --cell NAME [--fovs N]]
+                                      [--out PATH]
 
 Runs hiprfish_tpu_torch.pipeline.fused.fov_step on the 2000^2 7-bit FOV
 (400 planted cells, the committed 127-code classifier, max_cells=8192);
 with --ecoli fused_ecoli.fov_step_ecoli on the 2000^2 10-bit FOV of
 chip_smoke.py phase 11 (400 planted cells, the committed 1023-class
-classifier, max_cells=8192); or with --volume the 3D pass of
+classifier, max_cells=8192); with --cell a cell of BENCHMARK.json, its
+step handed one FOV of the cell's scenes after another as the benchmark
+hands them (``benchmark/programs``, rendered on the card from a fixed
+seed, the rendering outside the spans), the profiled call N FOVs and its
+span table per FOV; or with --volume the 3D pass of
 chip_smoke.py phase 8 (tools/bench3d.py's 2020 x 2020 x 170 volume from 8
 tiles: stitch -> segment_3d_tiled -> streamed bf16 measurement ->
 classify); with --cli-measure or --cli-multispecies the command line
@@ -18,11 +24,19 @@ cli.measure_multispecies (the 7-bit FOV's four planes) at its default
 flags, in a temporary directory, from reading the planes to the written
 artifacts; and reports:
 
-  * per-stage time: every op the step calls is wrapped so that it
-    synchronises the card before and after itself; the host clock between
-    the two syncs is the stage's time (the syncs serialise the step, so the
-    stages add up to more than an unwrapped call). A wrapped op called
-    inside another wrapped op counts toward the outer one only;
+  * per-stage time. The 2D steps (the default, --ecoli, --cell) read it
+    from the program's own spans (``hiprfish_tpu_torch.utils.logging``)
+    in the one profiled call, nothing synchronised: for each span path
+    (``step/markers/flood.ccl``) its calls, fixpoint rounds, host and
+    host self time, the routed reads' ``wait_ns``, the blocking host
+    calls, the device time and launches of the kernels and copies
+    launched while it was the innermost ``hiprfish::`` range, and the
+    card's idle time while it was (``span_table``). The other modes wrap
+    every op the step calls so that it synchronises the card before and
+    after itself; the host clock between the two syncs is the stage's
+    time (the syncs serialise the step, so the stages add up to more
+    than an unwrapped call). A wrapped op called inside another wrapped
+    op counts toward the outer one only;
   * the unwrapped step's wall time (median of 5) and, from one
     torch.profiler trace, the device time per kernel name and the device's
     idle share (1 - summed kernel time / wall time, against the profiled
@@ -35,6 +49,7 @@ Needs a CUDA device; imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import functools
 import json
@@ -65,22 +80,7 @@ def _fov_setup(torch, dev):
     def step():
         return fused.fov_step(stack, arrays, cfg, MAX_CELLS, static)
 
-    stages = [
-        (fused.reg, "register_translation", "register: FFT shift"),
-        (fused.reg, "apply_shift_2d", "register: apply shift"),
-        (fused.dn, "denoise_nl_means", "NLM (kernel B1)"),
-        (fused.lp, "lp_cv_enhance_2d", "LP-CV (kernel B2)"),
-        (fused.km, "brightest_cluster_mask", "KMeans"),
-        (fused.morph, "binary_opening", "opening"),
-        (fused.morph, "binary_fill_holes", "fill holes"),
-        (fused.lab, "label", "CCL"),
-        (fused.segstats, "rank_labels", "rank"),
-        (fused.segstats, "label_stats", "label stats (kernel B3)"),
-        (fused.segstats, "label_lookup", "label lookup (kernel B4)"),
-        (fused.ws, "watershed", "watershed"),
-        (fused, "classify_capped", "classify"),
-    ]
-    return step, stages, 5
+    return step, None, 5
 
 
 def _ecoli_setup(torch, dev):
@@ -102,24 +102,38 @@ def _ecoli_setup(torch, dev):
         return fused_ecoli.fov_step_ecoli(stack, arrays, cfg, MAX_CELLS,
                                           static)
 
-    m = fused_ecoli
-    stages = [
-        (m.reg, "register_translation", "register: FFT shift"),
-        (m.reg, "apply_shift_2d", "register: apply shift"),
-        (m.km, "brightest_cluster_masks", "KMeans (fg + interior)"),
-        (m.segstats, "remove_small_holes_fast",
-         "small holes (flood, CCL, B3, B4)"),
-        (m.morph, "binary_opening", "opening"),
-        (m.morph, "binary_erosion", "erosion depth (39 erosions)"),
-        (m.lab, "label", "CCL"),
-        (m.segstats, "rank_labels", "rank"),
-        (m.segstats, "label_stats", "label stats (kernel B3)"),
-        (m.segstats, "label_lookup", "label lookup (kernel B4)"),
-        (m.ws, "watershed", "watershed"),
-        (m, "_erode_labels_twice", "double erosion"),
-        (m.fused, "classify_capped", "classify"),
-    ]
-    return step, stages, 5
+    return step, None, 5
+
+
+def _cell_setup(torch, dev, name: str):
+    """(step, stages) of a benchmark cell: each call renders the cell's
+    next FOV and hands it to the cell's program."""
+    import importlib.util
+
+    def load(path):
+        spec = importlib.util.spec_from_file_location(
+            os.path.basename(path)[:-3], path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    run = load(os.path.join(ROOT, "benchmark", "run.py"))
+    import scenes
+
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        _, cfg, traffic = run.find_cell(json.load(f), name)
+    program = load(os.path.join(ROOT, "benchmark", "programs",
+                                cfg["program"] + ".py")).load(cfg, dev, {})
+    fovs = scenes.Scenes(traffic, cfg["layout"], cfg["fov"], 2**31 + 777)
+    index = [0]
+
+    def step():
+        stack, _, _ = fovs.make(index[0], dev)
+        index[0] += 1
+        return program.step(stack)
+
+    return step, None, 5
 
 
 def _volume_setup(torch, dev):
@@ -225,6 +239,108 @@ def _cli_setup(torch, dev, multispecies: bool):
     return step, stages, 3
 
 
+def _paths(records):
+    """{record id: 'step/markers/flood.ccl'} from the records' parents."""
+    by_id = {r["id"]: r for r in records}
+    out = {}
+    for r in records:
+        names, q = [], r
+        while q is not None:
+            names.append(q["name"])
+            q = by_id.get(q["parent"])
+        out[r["id"]] = "/".join(reversed(names))
+    return out
+
+
+# host calls that block until the device has caught up
+SYNC_CALLS = frozenset((
+    "cudaStreamSynchronize", "cudaDeviceSynchronize",
+    "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+    "cuCtxSynchronize", "cuEventSynchronize", "cuMemcpyDtoH_v2"))
+
+
+def span_table(prof, records) -> dict:
+    """{span path: calls, rounds, host_ms, self_host_ms, wait_ms, sync_ms,
+    syncs, device_ms, launches, idle_ms} of a profiled run. The host
+    columns come from the span records (``wait_ms``: the reads routed
+    through ``host_wait``); the others from the profiler, each event
+    given to the innermost ``hiprfish::`` range around it on the host:
+    every blocking host call (``syncs``, and its time ``sync_ms``), every
+    kernel or copy by its launch, the runtime call of the same
+    correlation id (``device_ms``; ``launches`` counts the kernels, not
+    the copies), and every gap in the device's activity by the host's
+    place at its middle (``idle_ms``). What lies outside every range is
+    ``(outside spans)``."""
+    import numpy as np
+    import torch
+
+    from hiprfish_tpu_torch.utils.logging import SPAN_PREFIX
+
+    paths = _paths(records)
+    child_ns = collections.Counter()
+    for r in records:
+        if r["parent"] is not None:
+            child_ns[r["parent"]] += r["end_ns"] - r["start_ns"]
+    rows = collections.defaultdict(lambda: dict.fromkeys(
+        ("calls", "rounds", "host_ms", "self_host_ms", "wait_ms", "sync_ms",
+         "syncs", "device_ms", "launches", "idle_ms"), 0))
+    for r in records:
+        row = rows[paths[r["id"]]]
+        dur = r["end_ns"] - r["start_ns"]
+        row["calls"] += 1
+        row["rounds"] += r["attrs"].get("rounds", 0)
+        row["host_ms"] += dur / 1e6
+        row["self_host_ms"] += (dur - child_ns[r["id"]]) / 1e6
+        row["wait_ms"] += r["attrs"].get("wait_ns", 0) / 1e6
+
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in events if e.device_type() == cuda
+           and not e.is_user_annotation()]
+    cpu = [e for e in events if e.device_type() != cuda]
+    launch = {e.correlation_id(): e.start_ns() for e in cpu
+              if e.name().startswith("cu")}
+    # the ranges, properly nested: sorted by start (outer first), each
+    # with its enclosing range and its path
+    ranges = sorted((e.start_ns(), -e.end_ns(), e.name()[len(SPAN_PREFIX):])
+                    for e in cpu if e.is_user_annotation()
+                    and e.name().startswith(SPAN_PREFIX))
+    starts = [a for a, _, _ in ranges]
+    parent, rpath, stack = [], [], []
+    for i, (a, _, name) in enumerate(ranges):
+        while stack and -ranges[stack[-1]][1] < a:
+            stack.pop()
+        parent.append(stack[-1] if stack else None)
+        rpath.append(name if not stack else rpath[stack[-1]] + "/" + name)
+        stack.append(i)
+
+    def innermost(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i is not None and i >= 0 and -ranges[i][1] < t:
+            i = parent[i]
+        return rpath[i] if i is not None and i >= 0 else "(outside spans)"
+
+    for e in cpu:
+        if e.name() in SYNC_CALLS:
+            row = rows[innermost(e.start_ns())]
+            row["syncs"] += 1
+            row["sync_ms"] += e.duration_ns() / 1e6
+    busy = []
+    for e in dev:
+        t = launch.get(e.correlation_id())
+        row = rows["(outside spans)" if t is None else innermost(t)]
+        row["device_ms"] += e.duration_ns() / 1e6
+        row["launches"] += not e.name().startswith(("Memcpy", "Memset"))
+        busy.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    if busy:
+        iv = np.asarray(sorted(busy), np.int64)
+        reach = np.maximum.accumulate(iv[:, 1])
+        for a, b in zip(reach[:-1].tolist(), iv[1:, 0].tolist()):
+            if b > a:
+                rows[innermost((a + b) // 2)]["idle_ms"] += (b - a) / 1e6
+    return dict(sorted(rows.items()))
+
+
 # the device functions of csrc/ (B1-B6 and B3's moments pass)
 PORT_KERNELS = ("nlm_", "lpcv2d_", "label_stats_kernel", "moments_to_table",
                 "label_lookup_kernel", "stats_cm_kernel", "lpcv3d_")
@@ -241,14 +357,19 @@ def main() -> int:
                        help="profile the 10-bit measure command line")
     which.add_argument("--cli-multispecies", action="store_true",
                        help="profile the 7-bit measure command line")
+    which.add_argument("--cell", default=None,
+                       help="profile a cell of BENCHMARK.json by name")
+    ap.add_argument("--fovs", type=int, default=5,
+                    help="FOVs in the profiled call of --cell")
     ap.add_argument("--out", default=None,
                     help="JSON output (default build/profile_torch_fov.json"
                     ", or build/profile_torch_<ecoli | volume | "
-                    "cli_measure | cli_multispecies>.json)")
+                    "cli_measure | cli_multispecies | cell name>.json)")
     args = ap.parse_args()
     kind = ("volume" if args.volume else "ecoli" if args.ecoli
             else "cli_measure" if args.cli_measure
-            else "cli_multispecies" if args.cli_multispecies else "fov")
+            else "cli_multispecies" if args.cli_multispecies
+            else args.cell if args.cell else "fov")
     out = args.out or os.path.join(ROOT, "build",
                                    f"profile_torch_{kind}.json")
     sys.path.insert(0, ROOT)
@@ -265,11 +386,15 @@ def main() -> int:
     setup = {"fov": _fov_setup, "ecoli": _ecoli_setup,
              "volume": _volume_setup,
              "cli_measure": lambda t, d: _cli_setup(t, d, False),
-             "cli_multispecies": lambda t, d: _cli_setup(t, d, True)}[kind]
+             "cli_multispecies": lambda t, d: _cli_setup(t, d, True)}.get(
+                 kind, lambda t, d: _cell_setup(t, d, args.cell))
     step, stages, reps = setup(torch, dev)
+    from hiprfish_tpu_torch.utils.logging import RECORDER, SPAN_PREFIX
     what = {"fov": "fov_step", "ecoli": "fov_step_ecoli",
             "volume": "3D pass", "cli_measure": "cli.measure",
-            "cli_multispecies": "cli.measure_multispecies"}[kind]
+            "cli_multispecies": "cli.measure_multispecies"}.get(
+                kind, f"{kind} (per FOV, rendering included)")
+    calls = args.fovs if args.cell else 1
 
     step()
     torch.cuda.synchronize()
@@ -281,7 +406,8 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.median(walls))
 
-    # per-stage times: wrap the ops the step calls, syncing around each
+    # per-stage times of the other modes: wrap the ops the step calls,
+    # syncing around each
     stage_ms = collections.defaultdict(float)
     stage_calls = collections.Counter()
     wrapped = []
@@ -309,33 +435,45 @@ def main() -> int:
         setattr(mod, name, timed)
         wrapped.append((mod, name, fn))
 
-    for mod, name, label in stages:
-        wrap(mod, name, label)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        synced_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for mod, name, fn in wrapped:
-            setattr(mod, name, fn)
+    synced_ms = None
+    if stages is not None:
+        for mod, name, label in stages:
+            wrap(mod, name, label)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            synced_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, name, fn in wrapped:
+                setattr(mod, name, fn)
 
     from torch.profiler import ProfilerActivity, profile
 
+    RECORDER.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        for _ in range(calls):
+            step()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    spans = None
+    if stages is None:
+        spans = {path: {k: v / calls for k, v in row.items()}
+                 for path, row in span_table(prof, RECORDER.snapshot())
+                 .items()}
+    RECORDER.reset()
     rows = []
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0.0)
-        if dt and ev.device_type.name == "CUDA":
-            rows.append((ev.key, dt / 1e3, ev.count))
+        # the spans' ranges show on the device's timeline too: not kernels
+        if dt and ev.device_type.name == "CUDA" \
+                and not ev.key.startswith(SPAN_PREFIX):
+            rows.append((ev.key, dt / 1e3 / calls, ev.count // calls))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
 
@@ -347,6 +485,7 @@ def main() -> int:
         "synced_stages_total_ms": synced_ms,
         "stages_ms": dict(sorted(stage_ms.items(), key=lambda kv: -kv[1])),
         "stage_calls": dict(stage_calls),
+        "spans": spans,
         "profiled_wall_ms": prof_wall_ms,
         "device_kernel_ms": device_ms,
         # the profiler slows the host, so the profiled call's idle share is
@@ -365,10 +504,18 @@ def main() -> int:
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
     print(f"card: {card}")
-    print(f"{what} wall {wall_ms:.1f} ms (median of {reps}); with "
-          f"per-stage syncs {synced_ms:.1f} ms")
-    for k, v in result["stages_ms"].items():
-        print(f"  {k:30s} {v:9.2f} ms  x{stage_calls[k]}")
+    print(f"{what} wall {wall_ms:.1f} ms (median of {reps})")
+    if spans is not None:
+        print("spans of the profiled call, per FOV (ms, but calls, rounds, "
+              "syncs and launches):")
+        keys = list(next(iter(spans.values())))
+        print(f"  {'path':36s}" + "".join(f"{k:>13s}" for k in keys))
+        for path, r in spans.items():
+            print(f"  {path:36s}" + "".join(f"{r[k]:13.2f}" for k in keys))
+    else:
+        print(f"with per-stage syncs {synced_ms:.1f} ms")
+        for k, v in result["stages_ms"].items():
+            print(f"  {k:30s} {v:9.2f} ms  x{stage_calls[k]}")
     print(f"profiled call: wall {prof_wall_ms:.1f} ms, kernels "
           f"{device_ms:.1f} ms, idle share "
           f"{result['device_idle_share']:.3f} (vs the unprofiled wall "
