@@ -283,6 +283,18 @@ non-zero and prints no result:
      every call, B1-B4 (7-bit) or B3 and B4 (10-bit) launched; ms/FOV
      (median of 3 after the first call) and peak device memory per
      scene. It writes nothing to disk.
+ 24. the fixpoint floods from CUDA graphs (ops/labeling._fixpoint, which
+     replays graphs of k rounds for 2D CUDA tensors): (a) every flood of
+     fov_step and of fov_step_ecoli on phase 23's nominal scenes, its
+     inputs recorded in one step and run again from the graphs and one
+     round at a time (the graphs turned off): bitwise outputs, equal
+     rounds, >= 1 replay, and both times (median of 5 synchronised
+     calls); (b) both steps with and without the graphs on two FOVs each
+     of 7-bit touching cells and 10-bit touching cells (phase 23's
+     nominal and high_noise scenes) and 7-bit sparse cells (the flagship
+     FOV, and its layout at seed 2): labels, n_cells, calls and valid
+     bitwise; (c) the driver's graph captures in the process and replays
+     in the phase, both > 0.
 
 B4 stores float32 or, for the label remaps of the steps and the 3D path,
 int32 (label_lookup(out_dtype=torch.int32)); phases 3 and 6 hold its
@@ -309,6 +321,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
@@ -3677,6 +3690,162 @@ def _dense_phase(torch, kernels, dev, clfs: dict) -> dict:
     return out
 
 
+# phase 24: the fixpoint floods from CUDA graphs (ops/labeling._fixpoint)
+# against the same floods one round at a time, timed per flood (median of
+# FLOOD_TIMED_CALLS synchronised calls), and whole steps with and without
+# the graphs on two 2000^2 FOVs of each kind
+FLOOD_TIMED_CALLS = 5
+
+
+def _no_graphs():
+    """Within the block the flood driver runs every loop one round at a
+    time, as it does for CPU and 3D tensors."""
+    from hiprfish_tpu_torch.ops import labeling as lab
+
+    return mock.patch.object(lab, "_takes_graphs", lambda t: False)
+
+
+def _flood_rounds(torch, fn) -> tuple:
+    """(fn's output, the rounds and replays of each flood span in it), the
+    spans recorded under a CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hiprfish_tpu_torch.utils.logging import RECORDER
+
+    RECORDER.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    spans = [(r["attrs"]["rounds"], r["attrs"]["replays"])
+             for r in RECORDER.snapshot() if r["name"].startswith("flood.")]
+    RECORDER.reset()
+    return out, spans
+
+
+def _synced_ms(torch, fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _flood_graph_phase(torch, dev, clfs: dict) -> dict:
+    """Phase 24: (a) each flood of the 7-bit and the 10-bit step, recorded
+    at its call in one step on the nominal 2000^2 touching-cell scene of
+    phase 23, run from graphs and one round at a time: equal outputs
+    (bitwise) and rounds, the graphs' replays, and both times; (b) whole
+    steps (fov_step, fov_step_ecoli) with and without the graphs on two
+    FOVs each of 7-bit touching cells (phase 23's nominal and high_noise
+    scenes), 10-bit touching cells (the same) and 7-bit sparse cells (the
+    flagship FOV and its layout at seed 2): labels, n_cells, calls and
+    valid bitwise; (c) the driver's captures and replays counted."""
+    from hiprfish_tpu_torch.config import SEVEN_BIT
+    from hiprfish_tpu_torch.ops import labeling as lab
+    from hiprfish_tpu_torch.ops import watershed as ws
+    from hiprfish_tpu_torch.pipeline import fused
+    from hiprfish_tpu_torch.utils import synthetic
+
+    t_phase = time.time()
+    replays0 = lab.replays
+    out = {"floods": {}, "steps": {}}
+    arrays = {f: fused.classifier_from_numpy(c, dev) for f, c in clfs.items()}
+
+    def step(family, stack):
+        return _dense_step(torch, family, stack, *arrays[family], MAX_CELLS)
+
+    for family in ("7b", "10b"):
+        fov = _dense_scene(family, "nominal")
+        stack = tuple(torch.from_numpy(a).to(dev) for a in fov["stack"])
+        del fov
+        calls = []
+        orig = lab._fixpoint
+
+        def record(name, key, body, state, consts, max_iters):
+            calls.append((name, key, body, tuple(t.clone() for t in state),
+                          tuple(t.clone() for t in consts), max_iters))
+            return orig(name, key, body, state, consts, max_iters)
+
+        lab._fixpoint = ws._fixpoint = record
+        try:
+            step(family, stack)
+        finally:
+            lab._fixpoint = ws._fixpoint = orig
+        rows = []
+        for i, (name, key, body, state, consts, iters) in enumerate(calls):
+            def run():
+                return lab._fixpoint(name, key, body, state, consts, iters)
+
+            run()
+            got, spans_g = _flood_rounds(torch, run)
+            graph_ms = _synced_ms(torch, run, FLOOD_TIMED_CALLS)
+            with _no_graphs():
+                want, spans_l = _flood_rounds(torch, run)
+                loop_ms = _synced_ms(torch, run, FLOOD_TIMED_CALLS)
+            same = all(a.dtype == b.dtype and bool(torch.equal(a, b))
+                       for a, b in zip(got, want))
+            (rounds_g, replays_g), = spans_g
+            (rounds_l, _), = spans_l
+            row = {"flood": name, "key": str(key),
+                   "shape": list(state[0].shape), "rounds": rounds_l,
+                   "rounds_graphs": rounds_g, "replays": replays_g,
+                   "loop_ms": loop_ms, "graphs_ms": graph_ms,
+                   "equal": same}
+            rows.append(row)
+            print(f"phase 24a {family} flood {i} {name} {key}: rounds "
+                  f"{rounds_l} / {rounds_g} from {replays_g} replays, "
+                  f"one round at a time {loop_ms:.2f} ms, from graphs "
+                  f"{graph_ms:.2f} ms, outputs equal {same}")
+            if not same or rounds_g != rounds_l or replays_g < 1:
+                raise AssertionError(f"phase 24a {family} {name}: the "
+                                     "graphs disagree with the loop")
+        out["floods"][family] = rows
+        del stack, calls
+
+    def sparse_fov(seed):
+        return synthetic.make_fov(
+            SEVEN_BIT, synthetic.FLAGSHIP_CODES,
+            shape=synthetic.FLAGSHIP_SHAPE, seed=seed,
+            laser_shifts=synthetic.FLAGSHIP_SHIFTS,
+            cell_axes=synthetic.FLAGSHIP_CELL_AXES)
+
+    for kind, family, make in (
+            ("7b touching", "7b", lambda s: _dense_scene("7b", s)),
+            ("10b touching", "10b", lambda s: _dense_scene("10b", s)),
+            ("7b sparse", "7b", lambda s: sparse_fov(
+                1 if s == "nominal" else 2))):
+        for scene in ("nominal", "high_noise"):
+            fov = make(scene)
+            stack = tuple(torch.from_numpy(a).to(dev) for a in fov["stack"])
+            del fov
+            res_g = step(family, stack)
+            with _no_graphs():
+                res_l = step(family, stack)
+            equal = {f: bool(torch.equal(getattr(res_g, f),
+                                         getattr(res_l, f)))
+                     for f in ("segmentation", "n_cells", "code_idx",
+                               "valid")}
+            print(f"phase 24b {kind} {scene}: n_cells {int(res_g.n_cells)}"
+                  f" / {int(res_l.n_cells)}, bitwise {equal}")
+            out["steps"][f"{kind} {scene}"] = {
+                "n_cells": int(res_g.n_cells), "equal": equal}
+            if not all(equal.values()):
+                raise AssertionError(f"phase 24b {kind} {scene}: the step "
+                                     "differs with the graphs")
+            del stack, res_g, res_l
+    # the keys of these shapes may have been captured by earlier phases
+    out["captures"] = lab.captures
+    out["replays"] = lab.replays - replays0
+    out["seconds"] = time.time() - t_phase
+    print(f"phase 24: captures {out['captures']} in the process, replays "
+          f"{out['replays']} in the phase, {out['seconds']:.1f} s")
+    if out["captures"] < 1 or out["replays"] < 1:
+        raise AssertionError("phase 24: the floods replayed no graph")
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -4401,6 +4570,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense = _dense_phase(torch, kernels, dev, {"7b": clf, "10b": clf10})
 
+    # 24. the fixpoint floods from CUDA graphs
+    floods = _flood_graph_phase(torch, dev, {"7b": clf, "10b": clf10})
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -4489,7 +4661,7 @@ def main() -> int:
                                         "oom_fallback": fallback,
                                         "warmup": warm,
                                         "stencil_forms": stencils},
-                      "dense": dense,
+                      "dense": dense, "flood_graphs": floods,
                       "volume_3d": {"remap_peak_gib": remap_gib,
                                     "labels_sha256": labels_sha}}))
     print(json.dumps({"ok": True, "device": {

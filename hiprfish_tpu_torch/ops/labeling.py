@@ -3,11 +3,16 @@ the label-table filters built on it (torch port of
 hiprfish_tpu/ops/labeling.py).
 
 Every fixpoint loop keeps the reference's cap and exit rule: stop when an
-iteration changed nothing or after ``max_iters`` iterations. The change
-test reads one boolean back to the host per iteration (a sync per round,
-through ``utils.logging.host_wait``); capturing the loop in a CUDA graph is
-later work. Each run of a loop is a span (``flood.ccl``, ``flood.rank``,
-``flood.reach``) whose ``rounds`` is the loop's iteration count.
+iteration changed nothing or after ``max_iters`` iterations. The loops
+(``flood_reach``, ``label``, ``segstats.rank_labels`` and
+``watershed.watershed``) hand their round, a pure function of the loop
+state, to one driver, ``_fixpoint``. On the CPU and for 3D tensors it runs
+the rounds one by one and reads each round's change test back to the host
+(through ``utils.logging.host_wait``). For a 2D CUDA tensor it replays
+CUDA graphs of ``_GRAPH_ROUNDS`` rounds that write their change flags to
+the card and reads the flags once a replay. Each run of a loop is a span
+(``flood.ccl``, ``flood.rank``, ``flood.reach``, ``flood.watershed``)
+whose ``rounds`` is the loop's iteration count.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import itertools
 
 import torch
+import torch.autograd.profiler as _tap
 
 from hiprfish_tpu_torch.utils.logging import host_wait, span
 
@@ -115,6 +121,163 @@ def _block_pool(x: torch.Tensor, c: int, op: str) -> torch.Tensor:
     return x
 
 
+# Rounds per graph replay. A replay runs up to k - 1 rounds past the
+# fixed point (0.7-1.2 ms of device work each on a 2000^2 FOV, ~(k - 1) / 2
+# a flood on average) to save host reads, each of which drains the card's
+# queue; on the card k = 2 gave more FOVs/s than k = 4 (PERF.md, PR 21).
+_GRAPH_ROUNDS = 2
+# keys captured (two graphs each) and graph replays in this process,
+# counted as the kernel wrappers count their launches
+captures = 0
+replays = 0
+# {key: _Rounds}, and the graph memory pool of each device that all of
+# them share (their replays never overlap: one stream, one at a time)
+_GRAPHS: dict = {}
+_POOLS: dict = {}
+
+
+def _changed(new, old) -> torch.Tensor:
+    """A round's change flag on the device: whether any state tensor
+    differs from its value before the round."""
+    flag = None
+    for a, b in zip(new, old):
+        d = (a != b).any()
+        flag = d if flag is None else flag | d
+    return flag
+
+
+def _takes_graphs(t: torch.Tensor) -> bool:
+    """Whether a loop over ``t`` replays graphs: 2D CUDA tensors. A 3D
+    tile's round is a few large kernels of up to 10^8 voxels each, so its
+    issue time is small, and graph pools of that size would press on the
+    3D pass's out-of-memory ladder; CPU tensors have no graphs."""
+    return t.is_cuda and t.ndim == 2
+
+
+class _Rounds:
+    """A fixpoint loop's state and inputs in static buffers, advanced n
+    rounds at a time: ``advance(n)`` runs the round n times from the
+    buffered state, writes each round's change flag into the device vector
+    ``flags`` and the state after the n-th round back into the buffers.
+    On a CUDA device ``capture`` records ``advance(k)`` and ``advance(1)``
+    as graphs that ``replay(n)`` runs."""
+
+    def __init__(self, body, state, consts, k: int):
+        self.body, self.k = body, k
+        self.state = tuple(torch.empty_like(t) for t in state)
+        self.consts = tuple(torch.empty_like(t) for t in consts)
+        self.flags = torch.zeros(k, dtype=torch.bool, device=state[0].device)
+        self.graphs = {}
+
+    def load(self, state, consts) -> None:
+        for buf, t in zip(self.state + self.consts, state + consts):
+            buf.copy_(t)
+
+    def advance(self, n: int) -> torch.Tensor:
+        cur, flags = self.state, []
+        for _ in range(n):
+            new = self.body(cur, self.consts)
+            flags.append(_changed(new, cur))
+            cur = new
+        torch.stack(flags, out=self.flags[:n])
+        for buf, t in zip(self.state, cur):
+            buf.copy_(t)
+        return self.flags[:n]
+
+    def capture(self, pool) -> None:
+        # a warm-up round on a side stream first, as torch.cuda.graphs
+        # asks; the buffers are left as they were
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _changed(self.body(self.state, self.consts), self.state)
+        torch.cuda.current_stream().wait_stream(side)
+        for n in dict.fromkeys((self.k, 1)):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.advance(n)
+            self.graphs[n] = graph
+
+    def replay(self, n: int) -> torch.Tensor:
+        self.graphs[n].replay()
+        return self.flags[:n]
+
+
+def _replay_rounds(step, k: int, max_iters: int) -> tuple[int, int]:
+    """The loop's exit rule over rounds run k at a time: ``step(n)``
+    advances the loop n rounds (k, or 1 where fewer than k remain before
+    ``max_iters``) and gives their change flags, read back in one host
+    read. Returns (rounds, steps): rounds is the index of the first round
+    that changed nothing, else ``max_iters``. The rounds that a step runs
+    past that one leave the state as it was: a round is a deterministic
+    function of the state, which that round did not change."""
+    it = steps = 0
+    while it < max_iters:
+        n = k if max_iters - it >= k else 1
+        flags = host_wait(torch.Tensor.tolist, step(n))  # host sync
+        steps += 1
+        for changed in flags:
+            it += 1
+            if not changed:
+                return it, steps
+    return it, steps
+
+
+def _loop(body, state, consts, max_iters: int):
+    """The loop one round at a time, each round's change test read back
+    to the host. Returns (state, rounds)."""
+    changed, it = True, 0
+    while changed and it < max_iters:
+        new = body(state, consts)
+        changed = host_wait(bool, _changed(new, state))  # host sync
+        state, it = new, it + 1
+    return state, it
+
+
+def _fixpoint(name: str, key, body, state, consts, max_iters: int):
+    """Run ``body(state, consts) -> state`` (tuples of tensors) until a
+    round changes nothing or for ``max_iters`` rounds, as the span
+    ``name`` with its ``rounds``, ``replays`` (graph replays) and
+    ``captured`` (1 where this call captured its graphs). Returns the
+    final state.
+
+    Where ``_takes_graphs`` (2D CUDA tensors), the loop replays the
+    graphs of ``_Rounds`` for (``key``, k, the device, each tensor's shape
+    and dtype), captured on first use (outside any span, and never while
+    a profiler records: until then such a call runs one round at a time),
+    and returns clones of the graphs' state buffers, which the next call
+    of the same key overwrites. Otherwise (CPU and 3D tensors) one round
+    at a time (``_loop``)."""
+    global captures, replays
+    rounds, captured, reps = None, 0, 0
+    if _takes_graphs(state[0]):
+        dev = state[0].device
+        full = (key, _GRAPH_ROUNDS, dev,
+                tuple((t.shape, t.dtype) for t in state + consts))
+        rounds = _GRAPHS.get(full)
+        if rounds is None and not _tap._is_profiler_enabled:
+            with torch.cuda.device(dev):
+                rounds = _Rounds(body, state, consts, _GRAPH_ROUNDS)
+                pool = _POOLS.get(dev)
+                if pool is None:
+                    pool = _POOLS[dev] = torch.cuda.graph_pool_handle()
+                rounds.capture(pool)
+            _GRAPHS[full] = rounds
+            captures += 1
+            captured = 1
+    with span(name) as sp:
+        if rounds is None:
+            state, it = _loop(body, state, consts, max_iters)
+        else:
+            rounds.load(state, consts)
+            it, reps = _replay_rounds(rounds.replay, rounds.k, max_iters)
+            replays += reps
+            state = tuple(t.clone() for t in rounds.state)
+        sp.set(rounds=it, replays=reps, captured=captured)
+    return state
+
+
 def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
                 connectivity: int = 1, max_iters: int = 512,
                 max_run: int | None = None) -> torch.Tensor:
@@ -136,27 +299,32 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
     return _flood_reach_flat(seeds, mask, connectivity, max_iters, max_run)
 
 
+def _reach_round(ndim: int, connectivity: int, max_run: int | None):
+    """One round of ``flood_reach``: state (reach,), inputs (mask,)."""
+    shifts = [s for s in _neighbor_shifts(ndim, connectivity)
+              if sum(abs(o) for o in s) >= 2]
+
+    def body(state, consts):
+        (cur,), (mask,) = state, consts
+        nb = cur
+        for off in shifts:
+            nb = nb | shifted(cur, off, False)
+        cur = mask & (cur | nb)
+        for axis in range(ndim):
+            cur = _run_or_scan(cur, mask, axis, False, max_run)
+            cur = _run_or_scan(cur, mask, axis, True, max_run)
+        return (cur,)
+
+    return body
+
+
 def _flood_reach_flat(seeds: torch.Tensor, mask: torch.Tensor,
                       connectivity: int = 1, max_iters: int = 512,
                       max_run: int | None = None) -> torch.Tensor:
-    ndim = mask.ndim
-    shifts = [s for s in _neighbor_shifts(ndim, connectivity)
-              if sum(abs(o) for o in s) >= 2]
-    reach = seeds & mask
-    changed, it = True, 0
-    with span("flood.reach") as sp:
-        while changed and it < max_iters:
-            cur = reach
-            nb = cur
-            for off in shifts:
-                nb = nb | shifted(cur, off, False)
-            cur = mask & (cur | nb)
-            for axis in range(ndim):
-                cur = _run_or_scan(cur, mask, axis, False, max_run)
-                cur = _run_or_scan(cur, mask, axis, True, max_run)
-            changed = host_wait(bool, (cur != reach).any())  # host sync
-            reach, it = cur, it + 1
-        sp.set(rounds=it)
+    (reach,) = _fixpoint(
+        "flood.reach", ("reach", connectivity, max_run),
+        _reach_round(mask.ndim, connectivity, max_run), (seeds & mask,),
+        (mask,), max_iters)
     return reach
 
 
@@ -183,36 +351,41 @@ def border_mask(shape, device=None) -> torch.Tensor:
     return border
 
 
+def _min_round(ndim: int, connectivity: int, max_run: int | None):
+    """One round of ``_min_flood``: state (lbl,), inputs (mask, a tensor
+    of _INF)."""
+    shifts = [s for s in _neighbor_shifts(ndim, connectivity)
+              if sum(abs(o) for o in s) >= 2]
+    full_conn = connectivity == ndim
+
+    def body(state, consts):
+        (cur,), (mask, inf) = state, consts
+        if full_conn:
+            cur = torch.where(mask,
+                              _window_pool(cur, torch.minimum, _INF), inf)
+        else:
+            nb = cur
+            for off in shifts:
+                nb = torch.minimum(nb, shifted(cur, off, _INF))
+            cur = torch.where(mask, torch.minimum(cur, nb), inf)
+        for axis in range(ndim):
+            cur = _run_min_scan(cur, mask, axis, False, max_run)
+            cur = _run_min_scan(cur, mask, axis, True, max_run)
+        return (cur,)
+
+    return body
+
+
 def _min_flood(init: torch.Tensor, mask: torch.Tensor, connectivity: int,
                max_iters: int, max_run: int | None,
                span_name: str = "flood.ccl") -> torch.Tensor:
     """Iterate neighbor-min + segmented min-scans to the fixed point (the
     shared body of label and segstats.rank_labels, whose runs are the
     spans ``flood.ccl`` and ``flood.rank``)."""
-    ndim = mask.ndim
-    shifts = [s for s in _neighbor_shifts(ndim, connectivity)
-              if sum(abs(o) for o in s) >= 2]
-    full_conn = connectivity == ndim
-    inf = torch.full_like(init, _INF)
-    lbl = init
-    changed, it = True, 0
-    with span(span_name) as sp:
-        while changed and it < max_iters:
-            cur = lbl
-            if full_conn:
-                cur = torch.where(mask,
-                                  _window_pool(cur, torch.minimum, _INF), inf)
-            else:
-                nb = cur
-                for off in shifts:
-                    nb = torch.minimum(nb, shifted(cur, off, _INF))
-                cur = torch.where(mask, torch.minimum(cur, nb), inf)
-            for axis in range(ndim):
-                cur = _run_min_scan(cur, mask, axis, False, max_run)
-                cur = _run_min_scan(cur, mask, axis, True, max_run)
-            changed = host_wait(bool, (cur != lbl).any())  # host sync
-            lbl, it = cur, it + 1
-        sp.set(rounds=it)
+    (lbl,) = _fixpoint(
+        span_name, ("min", connectivity, max_run),
+        _min_round(mask.ndim, connectivity, max_run), (init,),
+        (mask, torch.full_like(init, _INF)), max_iters)
     return lbl
 
 

@@ -70,7 +70,8 @@ def _no_range(*a, **k):
 
 
 class _CountReads:
-    """Stands in for a flood module's host_wait: counts the change tests
+    """Stands in for the flood driver's host_wait (``labeling``, whose
+    driver runs every flood, the watershed's too): counts the change tests
     read inside each open span (by the span's id)."""
 
     def __init__(self):
@@ -98,7 +99,6 @@ def runs(request):
         mp.undo()
         reads = _CountReads()
         mp.setattr(lab, "host_wait", reads)
-        mp.setattr(ws, "host_wait", reads)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             on = step()
         mp.undo()
@@ -270,8 +270,9 @@ def test_profile_tool_reads_its_stage_table_from_the_spans(runs):
     assert step["calls"] == 1
     assert step["host_ms"] == pytest.approx(sum(
         r["self_host_ms"] for r in table.values()))
-    assert sum(r["rounds"] for r in table.values()) == sum(
-        r["attrs"].get("rounds", 0) for r in records)
+    for k in ("rounds", "replays"):
+        assert sum(r[k] for r in table.values()) == sum(
+            r["attrs"].get(k, 0) for r in records)
     assert sum(r["wait_ms"] for r in table.values()) == pytest.approx(sum(
         r["attrs"].get("wait_ns", 0) for r in records) / 1e6)
     # a CPU profile has no device activity

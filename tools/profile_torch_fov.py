@@ -27,11 +27,12 @@ artifacts; and reports:
   * per-stage time. The 2D steps (the default, --ecoli, --cell) read it
     from the program's own spans (``hiprfish_tpu_torch.utils.logging``)
     in the one profiled call, nothing synchronised: for each span path
-    (``step/markers/flood.ccl``) its calls, fixpoint rounds, host and
-    host self time, the routed reads' ``wait_ns``, the blocking host
-    calls, the device time and launches of the kernels and copies
-    launched while it was the innermost ``hiprfish::`` range, and the
-    card's idle time while it was (``span_table``). The other modes wrap
+    (``step/markers/flood.ccl``) its calls, fixpoint rounds, the floods'
+    CUDA graph replays, host and host self time, the routed reads'
+    ``wait_ns``, the blocking host calls, the device time and launches of
+    the kernels and copies launched while it was the innermost
+    ``hiprfish::`` range, and the card's idle time while it was
+    (``span_table``). The other modes wrap
     every op the step calls so that it synchronises the card before and
     after itself; the host clock between the two syncs is the stage's
     time (the syncs serialise the step, so the stages add up to more
@@ -260,14 +261,14 @@ SYNC_CALLS = frozenset((
 
 
 def span_table(prof, records) -> dict:
-    """{span path: calls, rounds, host_ms, self_host_ms, wait_ms, sync_ms,
-    syncs, device_ms, launches, idle_ms} of a profiled run. The host
-    columns come from the span records (``wait_ms``: the reads routed
-    through ``host_wait``); the others from the profiler, each event
-    given to the innermost ``hiprfish::`` range around it on the host:
-    every blocking host call (``syncs``, and its time ``sync_ms``), every
-    kernel or copy by its launch, the runtime call of the same
-    correlation id (``device_ms``; ``launches`` counts the kernels, not
+    """{span path: calls, rounds, replays, host_ms, self_host_ms, wait_ms,
+    sync_ms, syncs, device_ms, launches, idle_ms} of a profiled run. The
+    host columns come from the span records (``replays``: a flood's graph
+    replays; ``wait_ms``: the reads routed through ``host_wait``); the
+    others from the profiler, each event given to the innermost
+    ``hiprfish::`` range around it on the host: every blocking host call
+    (``syncs``, and its time ``sync_ms``), every kernel or copy by its
+    launch, the runtime call of the same correlation id (``device_ms``; ``launches`` counts the kernels, not
     the copies), and every gap in the device's activity by the host's
     place at its middle (``idle_ms``). What lies outside every range is
     ``(outside spans)``."""
@@ -282,13 +283,14 @@ def span_table(prof, records) -> dict:
         if r["parent"] is not None:
             child_ns[r["parent"]] += r["end_ns"] - r["start_ns"]
     rows = collections.defaultdict(lambda: dict.fromkeys(
-        ("calls", "rounds", "host_ms", "self_host_ms", "wait_ms", "sync_ms",
-         "syncs", "device_ms", "launches", "idle_ms"), 0))
+        ("calls", "rounds", "replays", "host_ms", "self_host_ms", "wait_ms",
+         "sync_ms", "syncs", "device_ms", "launches", "idle_ms"), 0))
     for r in records:
         row = rows[paths[r["id"]]]
         dur = r["end_ns"] - r["start_ns"]
         row["calls"] += 1
         row["rounds"] += r["attrs"].get("rounds", 0)
+        row["replays"] += r["attrs"].get("replays", 0)
         row["host_ms"] += dur / 1e6
         row["self_host_ms"] += (dur - child_ns[r["id"]]) / 1e6
         row["wait_ms"] += r["attrs"].get("wait_ns", 0) / 1e6
@@ -507,7 +509,7 @@ def main() -> int:
     print(f"{what} wall {wall_ms:.1f} ms (median of {reps})")
     if spans is not None:
         print("spans of the profiled call, per FOV (ms, but calls, rounds, "
-              "syncs and launches):")
+              "replays, syncs and launches):")
         keys = list(next(iter(spans.values())))
         print(f"  {'path':36s}" + "".join(f"{k:>13s}" for k in keys))
         for path, r in spans.items():
