@@ -5,18 +5,35 @@ of BENCHMARK.json, one run.
                              --trace <0|1>
 
 A cell names a configuration (``configs/<name>.json``: the layout, the
-FOV's size, the program that drives the port (``programs/<program>.py``),
-its entry and flags, the classifier and the plain reference
-``configs/<name>.py``) and a traffic mix (``traffic/<name>.json``: the
-scenes' geometry); ``limits/<cell>.json`` holds the limits of its
-comparison, ``e2e/<metric>.py`` and ``metrics/<metric>.py`` read the
-end-to-end and per-layer metrics. Every file is found by its name in
-BENCHMARK.json.
+unit's size ``fov``, the program that drives the port
+(``programs/<program>.py``), its entry and flags, the classifier and the
+plain reference ``configs/<name>.py``) and a traffic mix
+(``traffic/<name>.json``: the parameters its source of work reads);
+``limits/<cell>.json`` holds the limits of its comparison,
+``e2e/<metric>.py`` and ``metrics/<metric>.py`` read the end-to-end and
+per-layer metrics. Every file is found by its name in BENCHMARK.json.
+
+Two keys of a configuration are optional:
+
+* ``"scenes"``: the module ``benchmark/<scenes>.py`` that is the cell's
+  source of work (default ``scenes``, the 2D fields of view). The run
+  builds ``Scenes(traffic, layout, fov, seed)`` from it once, then calls
+  ``make(index, device)`` for unit ``index``, which returns ``(stack,
+  truth, plan)``: ``stack`` is what the program's ``step`` and the
+  reference's ``run`` take, rendered on the device from (seed, index)
+  alone, so that the same pair gives the same unit; the harness reads
+  neither ``truth`` nor ``plan``. The rendering counts in the window but
+  falls outside the unit's latency.
+* ``"check_samples"``: how many of the window's results are checked
+  against the reference (default ``SAMPLE_SIZE``, 4; at least 1).
+
+A "FOV" in the metrics' names is one unit of that source: a field of
+view, or, for a source of volumes, one volume.
 
 The run is the port's one-card sweep, one process: it loads the program,
-warms it up on two FOVs, then for ``--seconds`` hands one FOV after
-another to the step and reads each result back to the host. Every FOV is
-rendered anew on the card from (seed, index) before it is handed in,
+warms it up on two units, then for ``--seconds`` hands one unit after
+another to the step and reads each result back to the host. Every unit
+is rendered anew on the card from (seed, index) before it is handed in,
 outside its latency. With ``--trace 0`` the last line of standard output
 holds the end-to-end metrics; with ``--trace 1`` the per-layer metrics,
 read from a profiled slice in the middle of the window. After the
@@ -46,6 +63,7 @@ os.environ.update({
     "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "USE_FLAX": "0"})
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
@@ -65,7 +83,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hiprfish_tpu")
 # the share of the window that a traced run profiles, in its middle
 PROFILE_SHARE = 0.2
 PROFILE_MAX_S = 3.0
-# window results checked against the reference in each run
+# window results checked against the reference in each run, unless the
+# configuration's "check_samples" says otherwise
 SAMPLE_SIZE = 4
 # FOVs stepped in the warm-up, before the window
 WARM_FOVS = 2
@@ -233,7 +252,10 @@ def run(args, bench, cell, cfg, traffic, setup) -> int:
         import tracing
         spans = tracing.OpSpans(prog_mod.KERNEL_ENTRIES)
 
-    import scenes
+    n_check = int(cfg.get("check_samples", SAMPLE_SIZE))
+    if n_check < 1:
+        raise ValueError(f"check_samples must be at least 1, not {n_check}")
+    scenes = importlib.import_module(cfg.get("scenes", "scenes"))
 
     t0 = time.perf_counter()
     fovs = scenes.Scenes(traffic, cfg["layout"], cfg["fov"], args.seed)
@@ -259,7 +281,7 @@ def run(args, bench, cell, cfg, traffic, setup) -> int:
     log("set-up:", json.dumps({k: round(v, 4) for k, v in setup.items()}),
         "setup_s:", setup_s, "cells in the warm-up FOVs:", warm_cells)
 
-    w = window(args, program, fovs, dev, spans)
+    w = window(args, program, fovs, dev, spans, n_check)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     log(f"window: {len(w['latencies_s'])} FOVs completed of {w['attempted']} "
         f"handed in, {w['failed']} failed; rendering {w['render_s']:.3f} s "
@@ -322,7 +344,7 @@ def run(args, bench, cell, cfg, traffic, setup) -> int:
     compared = {name: {"value": numbers.get(name), "limit": lim}
                 for name, lim in limits.items()}
     correct = (bool(w["latencies_s"]) and w["failed"] == 0
-               and len(checks) == min(SAMPLE_SIZE, len(w["latencies_s"]))
+               and len(checks) == min(n_check, len(w["latencies_s"]))
                and all(numbers.get(n) is not None and numbers[n] <= lim
                        for n, lim in limits.items()))
     log("other numbers:", json.dumps({n: v for n, v in numbers.items()
@@ -346,11 +368,11 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def window(args, program, fovs, dev, spans) -> dict:
+def window(args, program, fovs, dev, spans, n_check: int) -> dict:
     """The measured window: FOVs WARM_FOVS, WARM_FOVS + 1, ... each
     rendered, then handed to the step, until ``--seconds`` have passed. A
     FOV counts where its result reached the host inside the window; a
-    reservoir sample drawn from the seed keeps SAMPLE_SIZE of those. In a
+    reservoir sample drawn from the seed keeps ``n_check`` of those. In a
     traced run the profiler records whole FOVs around the middle slice."""
     from torch.profiler import record_function
 
@@ -403,11 +425,11 @@ def window(args, program, fovs, dev, spans) -> dict:
         if prof is not None:
             n_prof += 1
         latencies.append(t1 - t0)
-        if len(samples) < SAMPLE_SIZE:
+        if len(samples) < n_check:
             samples.append((index, host))
         else:
             r = int(rng.integers(len(latencies)))
-            if r < SAMPLE_SIZE:
+            if r < n_check:
                 samples[r] = (index, host)
         index += 1
     if prof is not None:
