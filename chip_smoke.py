@@ -761,60 +761,42 @@ def _volume_tiles(torch, dev, spec, lut_dev, grid=(2, 4), overlap=60):
 def _volume_step(torch, tile_box, spec, lut_dev, arrays, static, cfg,
                  tiled: dict, max_cells: int, z_chunk: int = 2,
                  log=lambda m: None, mark=lambda stage: None) -> dict:
-    """One 3D pass as tools/bench3d.py composes it, from the tiles (popped
-    from the one-element list ``tile_box``, so they free after the
-    stitch): stitch -> segment_3d_tiled (out_layout="xzy") -> measure
-    bf16 channels-major slabs (make_fused_measure, B5) -> classify.
-    Returns the labels, n_cells, mean spectra, calls and each stage's
-    seconds (synchronised). ``mark(stage)`` is called at the end of the
+    """One 3D pass, segment3d.volume_step, from the tiles (popped from the
+    one-element list ``tile_box``, so they free after the stitch) of
+    tools/bench3d.py's 2 x 4 grid with its 60-px overlap, and bf16
+    channels-major slabs of ``spec``. Returns the labels, n_cells, mean
+    spectra, calls and each stage's seconds (stitch, segment, measure,
+    classify; synchronised). ``mark(stage)`` is called at the end of the
     stitch, of segment_3d_tiled's remap, of the measure and of the
-    classify."""
-    from hiprfish_tpu_torch.config import SEVEN_BIT as layout
-    from hiprfish_tpu_torch.pipeline import fused, segment3d
+    classify; ``log`` gets segment_3d_tiled's messages."""
+    from hiprfish_tpu_torch.pipeline import segment3d
     from hiprfish_tpu_torch.utils import synthetic3d as s3
 
-    shape = spec.shape
     dev = lut_dev.device
     stages = {}
-    t0 = time.time()
-    tiles = tile_box.pop()
-    stitched = segment3d.stitch_tiles_device(tiles, (2, 4), 60, shape,
-                                             pad=10)
-    del tiles
-    stitched = stitched[10:10 + shape[0], 10:10 + shape[1],
-                        10:10 + shape[2]].contiguous()
-    _sync(torch, dev)
-    stages["stitch"] = time.time() - t0
-    mark("stitch")
-    t0 = time.time()
-    box = [stitched]
-    del stitched
-    seg_xzy, n_cells, _ = segment3d.segment_3d_tiled(
-        box, cfg, max_cells, out_layout="xzy", log=log, **tiled)
-    _sync(torch, dev)
-    stages["segment"] = time.time() - t0
-    mark("remap")
-    t0 = time.time()
-    run = segment3d.make_fused_measure(
+    names = {"stitch": "stitch", "remap": "segment", "measure": "measure",
+             "classify": "classify"}
+    t0 = [time.time()]
+
+    def step_log(msg):
+        if msg not in names:
+            log(msg)
+            return
+        _sync(torch, dev)
+        now = time.time()
+        stages[names[msg]] = now - t0[0]
+        t0[0] = now
+        mark(msg)
+
+    r = segment3d.volume_step(
+        tile_box,
         lambda z0, zc: s3.channel_chunk_cm(spec, lut_dev.shape[0], z0, zc,
                                            lut_dev, 1, torch.bfloat16),
-        shape, z_chunk, layout.n_channels, max_cells)
-    avg, _ = run(seg_xzy.permute(1, 0, 2).contiguous())
-    _sync(torch, dev)
-    stages["measure"] = time.time() - t0
-    mark("measure")
-    t0 = time.time()
-    norm = avg / torch.clamp(torch.max(avg, dim=1, keepdim=True).values,
-                             min=1e-12)
-    pred, _ = fused.classify_device(
-        norm, arrays["check_heads"], static[6], arrays.get("scaler_mean"),
-        arrays.get("scaler_scale"), arrays["train_features"],
-        arrays["train_labels"], *static[:6])
-    pred = pred.cpu().numpy()
-    stages["classify"] = time.time() - t0
-    mark("classify")
-    return {"seg_xzy": seg_xzy, "n_cells": n_cells, "avg": avg,
-            "pred": pred, "stages": stages}
+        arrays, static, cfg, max_cells, grid=(2, 4), overlap=60,
+        z_chunk=z_chunk, log=step_log, **tiled)
+    return {"seg_xzy": r.segmentation, "n_cells": r.n_cells,
+            "avg": r.avgint, "pred": r.code_idx.cpu().numpy(),
+            "stages": stages}
 
 
 class _StagePeaks:

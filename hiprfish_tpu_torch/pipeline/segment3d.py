@@ -17,7 +17,11 @@ thresholds are the reference's. Over a parallel/mesh DeviceMesh,
 segment_3d_tiled(mesh=) sweeps the tiles over the mesh's 'fov' ranks, and
 measure_volume_zsharded reduces one z-slab per rank (B5) and all-reduces
 the tables. warmup_pipeline builds the kernels a volume pass launches
-ahead of it (cli/warmup.py).
+ahead of it (cli/warmup.py). volume_step is one volume's pass from its
+tiles to its calls: the span ``step`` over the stage spans ``stitch``,
+``enhance``, ``thresholds``, ``seeds``, ``tiles`` (a ``tile`` each),
+``merge``, ``remap``, ``measure`` and ``classify`` (utils.logging.span:
+on while a torch profiler records).
 
 The untiled engine of one z-stack (cli.biofilm -d 3):
 measure_biofilm_images_3d reads the per-laser stacks, register_volume_stack
@@ -44,12 +48,15 @@ fixed-size device buffer, the port reads a small result back to the
 host: the registration and stitch shifts once, the seed filter's
 component count, the boundary pair sets (torch.unique per boundary is
 exact, so the reference's pair cap and its full-plane fallback are not
-needed) and the per-tile presence bitmaps.
+needed) and the per-tile presence bitmaps. The stitch shifts, the
+presence bitmaps, the pair sets and the global seeds' probe go through
+utils.logging.host_wait.
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,10 +76,12 @@ from hiprfish_tpu_torch.ops import segstats
 from hiprfish_tpu_torch.ops import watershed as ws
 from hiprfish_tpu_torch.parallel import mesh as meshlib
 from hiprfish_tpu_torch.pipeline import biofilm as bf
+from hiprfish_tpu_torch.pipeline import fused
 from hiprfish_tpu_torch.pipeline import measure as meas
 from hiprfish_tpu_torch.pipeline import segment2d
 from hiprfish_tpu_torch.pipeline.classify import SHAPE_COLUMNS
 from hiprfish_tpu_torch.utils import oom
+from hiprfish_tpu_torch.utils.logging import host_wait, span
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +99,11 @@ def _on(volume, device) -> torch.Tensor:
     order = sorted(range(t.ndim), key=t.stride, reverse=True)
     back = [order.index(d) for d in range(t.ndim)]
     return t.permute(order).to(device).permute(back)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array (a host read of a card tensor)."""
+    return t.cpu().numpy()
 
 
 def _host_on(volume, device) -> torch.Tensor:
@@ -236,7 +250,8 @@ def stitch_tiles_device(tile_volumes, grid, overlap: int, out_shape,
                 found.append(reg.register_translation_3d(
                     tiles[i * gx + j - 1][:, -strip:],
                     tiles[i * gx + j][:, :strip]))
-    sh = torch.stack(found).to(torch.int32).cpu().numpy().reshape(gy, gx, 3)
+    sh = host_wait(_to_host, torch.stack(found).to(torch.int32)) \
+        .reshape(gy, gx, 3)
     shape = (out_shape[0] + 2 * pad, out_shape[1] + 2 * pad,
              out_shape[2] + 2 * pad)
     full = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -303,7 +318,7 @@ def _global_seeds_or_none(enhanced: torch.Tensor, thr_seed):
         seeds = _global_seeds(enhanced, thr_seed)
         # one voxel read to the host: an error of the queued work surfaces
         # here, inside the try
-        bool(seeds[0, 0, 0])
+        host_wait(bool, seeds[0, 0, 0])
         return seeds
     except Exception as e:  # noqa: BLE001 - filtered by is_oom_error
         if not oom.is_oom_error(e):
@@ -389,14 +404,15 @@ def _tiled_segment_pass(boxes, thresholds, statics, shapes,
     seeds_p or None)] in the (x, Z, Y) layout; it is emptied so the padded
     inputs free when the loop ends. Returns (list of (tile_x, Z, Y) label
     tiles, list of (tile_cap,) presence bitmaps, list of (2, Z, Y) boundary
-    planes)."""
+    planes). Each tile is the span ``tile``."""
     tile_x, margin, n_tiles = shapes
     enhanced_p, bkg_p, seeds_p = boxes.pop()
     outs, presents, planes = [], [], []
     for t in range(n_tiles) if tiles is None else tiles:
-        o, p, pl = _segment_tile_at(
-            enhanced_p, bkg_p, seeds_p, thresholds,
-            min(t, n_tiles - 1) * tile_x, statics, (tile_x, margin))
+        with span("tile"):
+            o, p, pl = _segment_tile_at(
+                enhanced_p, bkg_p, seeds_p, thresholds,
+                min(t, n_tiles - 1) * tile_x, statics, (tile_x, margin))
         outs.append(o)
         presents.append(p)
         planes.append(pl)
@@ -485,95 +501,114 @@ def segment_3d_tiled(vol_sum, cfg: SegmentationConfig = SegmentationConfig(),
     labels.
 
     Pass ``vol_sum`` as a one-element list to hand it over (it is popped,
-    so it can be freed early). Returns (labels (X, Y, Z) int32, or
-    (X, Z, Y) with out_layout="xzy"; n_cells int; None)."""
+    so it can be freed early). The stages are the spans ``enhance``
+    (normalise, the background threshold, B6), ``thresholds``, ``seeds``,
+    ``tiles`` (its counter ``tiles``: the slabs swept), ``merge`` (the
+    read-backs, the union-find and the remap table; its counters
+    ``pairs``, the boundary codes read back, and ``unions``, the merges
+    made) and ``remap``. Returns (labels (X, Y, Z) int32, or (X, Z, Y)
+    with out_layout="xzy"; n_cells int; None)."""
     if isinstance(vol_sum, list):
         vol_sum = vol_sum.pop()
     x, y, z = vol_sum.shape
-    # the canonical (x, Z, Y) layout, once, while only vol_sum is live
-    vol_xzy = vol_sum.permute(0, 2, 1).contiguous()
-    del vol_sum
-    vol_norm = vol_xzy / torch.clamp(torch.max(vol_xzy), min=1e-12)
-    del vol_xzy
-    logv = torch.log10(vol_norm + 1e-8)
-    thr_bkg = _cluster_threshold(logv, 2, cfg.kmeans_iters)
-    bkg = logv >= thr_bkg
-    del logv
-    enhanced = lp_cv_enhance_3d_chunked(vol_norm, cfg, chunk_xy, bf16,
-                                        layout="xzy")
-    del vol_norm
-    log("enhanced")
-    c2, c3 = km.kmeans1d_centers_multi(enhanced, (2, 3), cfg.kmeans_iters)
-    thr_fg = (c2[-1] + c2[-2]) / 2.0
-    thr_int = (c3[-1] + c3[-2]) / 2.0
+    with span("enhance"):
+        # the canonical (x, Z, Y) layout, once, while only vol_sum is live
+        vol_xzy = vol_sum.permute(0, 2, 1).contiguous()
+        del vol_sum
+        vol_norm = vol_xzy / torch.clamp(torch.max(vol_xzy), min=1e-12)
+        del vol_xzy
+        logv = torch.log10(vol_norm + 1e-8)
+        thr_bkg = _cluster_threshold(logv, 2, cfg.kmeans_iters)
+        bkg = logv >= thr_bkg
+        del logv
+        enhanced = lp_cv_enhance_3d_chunked(vol_norm, cfg, chunk_xy, bf16,
+                                            layout="xzy")
+        del vol_norm
+        log("enhanced")
+    with span("thresholds"):
+        c2, c3 = km.kmeans1d_centers_multi(enhanced, (2, 3),
+                                           cfg.kmeans_iters)
+        thr_fg = (c2[-1] + c2[-2]) / 2.0
+        thr_int = (c3[-1] + c3[-2]) / 2.0
     seeds = None
     if global_seeds:
-        seeds = _global_seeds_or_none(enhanced,
-                                      torch.maximum(thr_fg, thr_int))
-        log("global seeds" if seeds is not None else "in-tile seeds")
+        with span("seeds"):
+            seeds = _global_seeds_or_none(enhanced,
+                                          torch.maximum(thr_fg, thr_int))
+            log("global seeds" if seeds is not None else "in-tile seeds")
 
     n_tiles = -(-x // tile_x)
     pad_r = n_tiles * tile_x - x + margin
-    box = [(_edge_pad_x(enhanced, margin, pad_r),
-            _edge_pad_x(bkg, margin, pad_r),
-            None if seeds is None else _edge_pad_x(seeds, margin, pad_r))]
-    del enhanced, bkg, seeds
     statics = (cfg.lp_seed_min_size, cfg.ccl_max_iters,
                cfg.watershed_max_iters, tile_cap, scan_cap)
-    if mesh is None:
-        tiles_seg, presents, planes = _tiled_segment_pass(
-            box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles), log)
-    else:
-        tiles_seg, presents, planes = _tiled_segment_pass_mesh(
-            box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles),
-            mesh, log)
+    with span("tiles") as sp:
+        box = [(_edge_pad_x(enhanced, margin, pad_r),
+                _edge_pad_x(bkg, margin, pad_r),
+                None if seeds is None else _edge_pad_x(seeds, margin, pad_r))]
+        del enhanced, bkg, seeds
+        if mesh is None:
+            tiles_seg, presents, planes = _tiled_segment_pass(
+                box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles),
+                log)
+            sp.set(tiles=n_tiles)
+        else:
+            tiles_seg, presents, planes = _tiled_segment_pass_mesh(
+                box, (thr_fg, thr_int), statics, (tile_x, margin, n_tiles),
+                mesh, log)
+            sp.set(tiles=-(-n_tiles // meshlib.dim_size(mesh, "fov")))
 
     # host union-find; the global id of tile t's local rank r is
     # t * tile_cap + r
-    present = torch.stack(presents).cpu().numpy()
-    pair_sets = [p.cpu().numpy() for p in
-                 _boundary_pair_codes(tiles_seg, planes, tile_cap)]
-    del planes
-    parent = {}
+    with span("merge") as sp:
+        present = host_wait(_to_host, torch.stack(presents))
+        pair_sets = [host_wait(_to_host, p) for p in
+                     _boundary_pair_codes(tiles_seg, planes, tile_cap)]
+        del planes
+        parent = {}
 
-    def find(a):
-        while parent.get(a, a) != a:
-            parent[a] = parent.get(parent[a], parent[a])
-            a = parent[a]
-        return a
+        def find(a):
+            while parent.get(a, a) != a:
+                parent[a] = parent.get(parent[a], parent[a])
+                a = parent[a]
+            return a
 
-    def union(a, b):
-        ra, rb = find(a), find(b)
-        if ra != rb:
-            parent[max(ra, rb)] = min(ra, rb)
+        def union(a, b):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[max(ra, rb)] = min(ra, rb)
+                return 1
+            return 0
 
-    for t in range(n_tiles - 1):
-        if (t + 1) * tile_x >= x:
-            break
-        for code in pair_sets[t].tolist():
-            union(t * tile_cap + code // tile_cap,
-                  (t + 1) * tile_cap + code % tile_cap)
-    all_ids = [t * tile_cap + int(r)
-               for t in range(n_tiles)
-               for r in np.flatnonzero(present[t][1:]) + 1]
-    roots = sorted({find(i) for i in all_ids})
-    root_rank = {r: i + 1 for i, r in enumerate(roots)}
-    remap = np.zeros(n_tiles * tile_cap, np.float32)
-    for i in all_ids:
-        remap[i] = min(root_rank[find(i)], max_cells - 1)
-    n_cells = min(len(roots), max_cells - 1)
-    log(f"merge: {n_cells} cells")
+        unions = 0
+        for t in range(n_tiles - 1):
+            if (t + 1) * tile_x >= x:
+                break
+            for code in pair_sets[t].tolist():
+                unions += union(t * tile_cap + code // tile_cap,
+                                (t + 1) * tile_cap + code % tile_cap)
+        all_ids = [t * tile_cap + int(r)
+                   for t in range(n_tiles)
+                   for r in np.flatnonzero(present[t][1:]) + 1]
+        roots = sorted({find(i) for i in all_ids})
+        root_rank = {r: i + 1 for i, r in enumerate(roots)}
+        remap = np.zeros(n_tiles * tile_cap, np.float32)
+        for i in all_ids:
+            remap[i] = min(root_rank[find(i)], max_cells - 1)
+        n_cells = min(len(roots), max_cells - 1)
+        remap_dev = torch.from_numpy(remap).to(tiles_seg[0].device)
+        sp.set(pairs=sum(len(p) for p in pair_sets), unions=unions)
+        log(f"merge: {n_cells} cells")
 
     # remap tile by tile, freeing each original, then assemble once
-    remap_dev = torch.from_numpy(remap).to(tiles_seg[0].device)
-    remapped = []
-    while tiles_seg:
-        remapped.append(_remap_tile(tiles_seg.pop(0), remap_dev,
-                                    len(remapped), tile_cap))
-    seg = torch.cat(remapped, dim=0)[:x]
-    del remapped
-    if out_layout != "xzy":
-        seg = seg.permute(0, 2, 1).contiguous()
+    with span("remap"):
+        remapped = []
+        while tiles_seg:
+            remapped.append(_remap_tile(tiles_seg.pop(0), remap_dev,
+                                        len(remapped), tile_cap))
+        seg = torch.cat(remapped, dim=0)[:x]
+        del remapped
+        if out_layout != "xzy":
+            seg = seg.permute(0, 2, 1).contiguous()
     return seg, n_cells, None
 
 
@@ -799,6 +834,91 @@ def measure_volume_zsharded(seg, volume_cm, mesh, axis: str = "fov",
         labels, torch.as_tensor(volume_cm[:, z0:z0 + zc]).to(dev), max_cells)
     meshlib.all_reduce(acc, mesh, (axis,))
     return acc[:, 1:] / torch.clamp(acc[:, :1], min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The volume step
+# ---------------------------------------------------------------------------
+
+# the blank border the stitch pads the volume with, cropped off again
+STITCH_PAD = 10
+
+
+class VolumeResult(NamedTuple):
+    segmentation: torch.Tensor   # (X, Z, Y) int32 labels 0..n_cells
+    n_cells: int
+    avgint: torch.Tensor         # (max_cells, C) mean spectra (row 0 zero)
+    code_idx: torch.Tensor       # (max_cells,) predicted class index
+    max_prob: torch.Tensor       # (max_cells,) kNN vote fraction
+
+
+def volume_step(tile_box, slabs, arrays, static,
+                cfg: SegmentationConfig, max_cells: int, *,
+                grid=(2, 4), overlap: int = 60, z_chunk: int = 2,
+                **tiled) -> VolumeResult:
+    """The 3D pass of one stitched volume, from its microscope tiles to
+    per-cell barcode calls: stitch_tiles_device and the crop of its
+    padding -> segment_3d_tiled (out_layout="xzy") -> make_fused_measure
+    over the channels-major slabs (B5) -> row-max normalisation ->
+    fused.classify_device.
+
+    tile_box: a one-element list holding the list of (ty, tx, tz) summed
+    tiles in row-major ``grid`` order (popped, so the tiles free after the
+    stitch); the volume is (gy ty - (gy - 1) overlap, gx tx - (gx - 1)
+    overlap, tz) in (X, Y, Z). slabs(z0, zc): the (C, zc, X, Y) channel
+    data of planes [z0, z0 + zc), taken ``z_chunk`` planes at a time.
+    arrays, static: the classifier, from fused.classifier_from_numpy.
+    ``tiled``: segment_3d_tiled's keyword arguments (tile_x, margin,
+    tile_cap, scan_cap, bf16, log, ...); ``log`` also receives 'stitch',
+    'remap', 'measure' and 'classify' once each stage's work is issued.
+
+    Each call is the span ``step`` over the stages ``stitch``, then
+    segment_3d_tiled's ``enhance``, ``thresholds``, ``seeds``, ``tiles``
+    (a ``tile`` each) with the counter ``tiles``, ``merge`` with
+    ``pairs`` and ``unions``, ``remap``, then ``measure`` with ``slabs``
+    (B5 launches) and ``classify`` (utils.logging.span: on while a torch
+    profiler records). Returns a VolumeResult."""
+    # the kNN distances are float32 GEMMs: no TF32 anywhere in the step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (n_classes, blocks, check_slice, n_channels, k, temperature,
+     check_blocks) = static
+    log = tiled.get("log", lambda m: None)
+    with span("step"):
+        with span("stitch"):
+            tiles = tile_box.pop()
+            (gy, gx), (ty, tx, tz) = grid, tiles[0].shape
+            shape = (gy * ty - (gy - 1) * overlap,
+                     gx * tx - (gx - 1) * overlap, tz)
+            stitched = stitch_tiles_device(tiles, grid, overlap, shape,
+                                           pad=STITCH_PAD)
+            del tiles
+            p = STITCH_PAD
+            stitched = stitched[p:p + shape[0], p:p + shape[1],
+                                p:p + shape[2]].contiguous()
+            log("stitch")
+        box = [stitched]
+        del stitched
+        seg_xzy, n_cells, _ = segment_3d_tiled(box, cfg, max_cells,
+                                               out_layout="xzy", **tiled)
+        log("remap")
+        with span("measure") as sp:
+            run = make_fused_measure(slabs, shape, z_chunk, n_channels,
+                                     max_cells)
+            avg, _ = run(seg_xzy.permute(1, 0, 2).contiguous())
+            sp.set(slabs=-(-shape[2] // z_chunk))
+            log("measure")
+        with span("classify"):
+            norm = avg / torch.clamp(torch.max(avg, dim=1,
+                                               keepdim=True).values,
+                                     min=1e-12)
+            code_idx, max_prob = fused.classify_device(
+                norm, arrays["check_heads"], check_blocks,
+                arrays.get("scaler_mean"), arrays.get("scaler_scale"),
+                arrays["train_features"], arrays["train_labels"],
+                n_classes, blocks, check_slice, n_channels, k, temperature)
+            log("classify")
+    return VolumeResult(seg_xzy, n_cells, avg, code_idx, max_prob)
 
 
 # ---------------------------------------------------------------------------

@@ -16,23 +16,25 @@ step handed one FOV of the cell's scenes after another as the benchmark
 hands them (``benchmark/programs``, rendered on the card from a fixed
 seed, the rendering outside the spans), the profiled call N FOVs and its
 span table per FOV; or with --volume the 3D pass of
-chip_smoke.py phase 8 (tools/bench3d.py's 2020 x 2020 x 170 volume from 8
-tiles: stitch -> segment_3d_tiled -> streamed bf16 measurement ->
-classify); with --cli-measure or --cli-multispecies the command line
+chip_smoke.py phase 8 (segment3d.volume_step on tools/bench3d.py's 2020 x
+2020 x 170 volume from 8 tiles: stitch -> segment_3d_tiled -> streamed
+bf16 measurement -> classify; the slabs' rendering inside ``measure``);
+with --cli-measure or --cli-multispecies the command line
 cli.measure -c F (the 10-bit FOV's five .npy planes) or
 cli.measure_multispecies (the 7-bit FOV's four planes) at its default
 flags, in a temporary directory, from reading the planes to the written
 artifacts; and reports:
 
-  * per-stage time. The 2D steps (the default, --ecoli, --cell) read it
-    from the program's own spans (``hiprfish_tpu_torch.utils.logging``)
-    in the one profiled call, nothing synchronised: for each span path
-    (``step/markers/flood.ccl``) its calls, fixpoint rounds, the floods'
+  * per-stage time. The FOV and volume steps (the default, --ecoli,
+    --cell, --volume) read it from the program's own spans
+    (``hiprfish_tpu_torch.utils.logging``) in the one profiled call,
+    nothing synchronised: for each span path (``step/markers/flood.ccl``)
+    its calls, fixpoint rounds, the floods'
     CUDA graph replays, host and host self time, the routed reads'
     ``wait_ns``, the blocking host calls, the device time and launches of
     the kernels and copies launched while it was the innermost
     ``hiprfish::`` range, and the card's idle time while it was
-    (``span_table``). The other modes wrap
+    (``span_table``). The command lines (--cli-*) wrap
     every op the step calls so that it synchronises the card before and
     after itself; the host clock between the two syncs is the stage's
     time (the syncs serialise the step, so the stages add up to more
@@ -138,7 +140,9 @@ def _cell_setup(torch, dev, name: str):
 
 
 def _volume_setup(torch, dev):
-    """(step, stages) of the 3D pass; the tiles are built once and kept."""
+    """(step, stages) of the 3D pass, segment3d.volume_step on chip_smoke
+    phase 8's tiles (built once and kept) and bf16 channels-major
+    slabs."""
     import chip_smoke as cs
     from hiprfish_tpu_torch.config import SEVEN_BIT, SegmentationConfig
     from hiprfish_tpu_torch.models.artifacts import load_classifier
@@ -152,31 +156,17 @@ def _volume_setup(torch, dev):
     tiles = cs._volume_tiles(torch, dev, spec, lut_dev)
     arrays, static = fused.classifier_from_numpy(
         load_classifier(cs.FIXTURE), dev)
-    cfg = SegmentationConfig()
+
+    def slabs(z0, zc):
+        return s3.channel_chunk_cm(spec, lut_dev.shape[0], z0, zc, lut_dev,
+                                   1, torch.bfloat16)
 
     def step():
-        return cs._volume_step(torch, [list(tiles)], spec, lut_dev, arrays,
-                               static, cfg, cs.TILED_3D, cs.MAX_CELLS_3D)
+        return segment3d.volume_step(
+            [list(tiles)], slabs, arrays, static, SegmentationConfig(),
+            cs.MAX_CELLS_3D, grid=(2, 4), overlap=60, **cs.TILED_3D)
 
-    m = segment3d
-    stages = [
-        (m.reg, "register_translation_3d", "stitch: FFT shifts"),
-        (m.lp, "lp_cv_enhance_3d", "3D LP-CV (kernel B6)"),
-        (m.km, "kmeans1d_centers", "KMeans (bkg)"),
-        (m.km, "kmeans1d_centers_multi", "KMeans (fg, interior)"),
-        (m.morph, "binary_opening", "seeds: opening"),
-        (m.morph, "binary_fill_holes", "seeds: fill holes"),
-        (m.lab, "label", "tiles: CCL"),
-        (m.segstats, "rank_labels", "tiles: rank"),
-        (m.segstats, "label_stats", "label stats (kernel B3)"),
-        (m.segstats, "label_lookup", "label lookup (kernel B4)"),
-        (m.ws, "watershed", "tiles: watershed"),
-        (m, "_boundary_pair_codes", "merge: boundary pairs"),
-        (s3, "channel_chunk_cm", "measure: spectra generator"),
-        (m.segstats, "stats_cm", "measure: stats_cm (kernel B5)"),
-        (fused, "classify_device", "classify"),
-    ]
-    return step, stages, 3
+    return step, None, 3
 
 
 def _cli_setup(torch, dev, multispecies: bool):
