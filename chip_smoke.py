@@ -7,10 +7,11 @@ Phases, each printing its own line; any failure raises, so the script exits
 non-zero and prints no result:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from csrc/ (one nvcc per source) and, in
+  2. build the CUDA kernels from csrc/ (one nvcc per source) and, in
      parallel with them, B6's instances for the configurations (7, 5, 6),
      (21, 5, 4) and (29, 3, 4) of phase 13; print the build time and
-     ptxas's registers and spills of B1, B2, B3/B4/B5 and B6;
+     ptxas's registers and spills of B1, B2, B3/B4/B5, B6 and the flood
+     rounds;
   3. run the 2D kernels against their plain-torch twins on the card at the
      main path's shapes (2000^2 images; B3 on the 2000^2 label image with
      16384 segments at the column sets the paths launch: counts only, counts
@@ -294,7 +295,14 @@ non-zero and prints no result:
      nominal and high_noise scenes) and 7-bit sparse cells (the flagship
      FOV, and its layout at seed 2): labels, n_cells, calls and valid
      bitwise; (c) the driver's graph captures in the process and replays
-     in the phase, both > 0.
+     in the phase, both > 0;
+ 25. the flood rounds on csrc/flood.cu (kernels.flood_min, flood_reach)
+     against their plain twins from the same random masks and states: a
+     3D tile's CCL and rank (488 x 170 x 2020, connectivity 3, cap 32),
+     the 3D seeds' fill-holes (2020 x 170 x 2020, connectivity 1,
+     max_run 128) and the 2D floods at 2000^2 (caps 16 and 64): bitwise
+     outputs, ms a round alone and with the change test beside the bound
+     of its passes' bytes, and the plain round's ms.
 
 B4 stores float32 or, for the label remaps of the steps and the 3D path,
 int32 (label_lookup(out_dtype=torch.int32)); phases 3 and 6 hold its
@@ -3828,6 +3836,97 @@ def _flood_graph_phase(torch, dev, clfs: dict) -> dict:
     return out
 
 
+# phase 25: the flood rounds of csrc/flood.cu against their plain twins,
+# as (kind, shape, connectivity, max_run, mask density): a 3D tile's CCL
+# and rank ((360 + 2 x 64) x 170 x 2020, tile_cap's scan cap 32), the 3D
+# pass's seed fill-holes over the 2020 x 170 x 2020 volume (max_run 128),
+# and the 2D steps' floods at 2000^2 (scan_cap 16, the 10-bit small
+# holes' 64)
+FLOOD_ROUNDS = (
+    ("min", (488, 170, 2020), 3, 32, 0.45),
+    ("reach", (2020, 170, 2020), 1, 128, 0.6),
+    ("min", (2000, 2000), 2, 16, 0.5),
+    ("min", (2000, 2000), 1, 64, 0.5),
+    ("reach", (2000, 2000), 1, 64, 0.6),
+    ("reach", (2000, 2000), 2, 16, 0.6),
+)
+
+
+def _flood_kernel_phase(torch, dev) -> dict:
+    """Phase 25: one round of each FLOOD_ROUNDS case on csrc/flood.cu
+    (kernels.flood_min / flood_reach) and on its plain twin
+    (labeling._min_round_plain / _reach_round_plain) from the same random
+    mask and state (the min state with values off the mask, as round 1 of
+    rank has them): bitwise equal outputs; the kernel round's time alone
+    and with the fixpoint's change test, the plain round's, and the
+    round's bound: its passes' bytes (each reads the state and the mask
+    once and writes the state once; kernels.flood_plan) over the card's
+    rate, and with the change test's two state reads."""
+    from hiprfish_tpu_torch import kernels
+    from hiprfish_tpu_torch.ops import labeling as lab
+
+    t_phase = time.time()
+    out = {"rounds": []}
+    for kind, shape, conn, cap, density in FLOOD_ROUNDS:
+        gen = torch.Generator(device=dev).manual_seed(25)
+        mask = torch.rand(shape, generator=gen, device=dev) < density
+        full = kind == "min" and conn == len(shape)
+        if kind == "min":
+            cur = torch.randint(1, 1 << 30, shape, generator=gen, device=dev,
+                                dtype=torch.int32)
+            consts = (mask, torch.full_like(cur, lab._INF))
+            plain = lab._min_round_plain(len(shape), conn, cap)
+            binding = kernels.flood_min
+        else:
+            cur = torch.rand(shape, generator=gen, device=dev) < 0.01
+            consts = (mask,)
+            plain = lab._reach_round_plain(len(shape), conn, cap)
+            binding = kernels.flood_reach
+
+        def kernel():
+            return binding(cur, mask, conn, cap)
+
+        def with_test():
+            return lab._changed((kernel(),), (cur,))
+
+        got, (want,) = kernel(), plain((cur,), consts)
+        torch.cuda.synchronize()
+        equal = got.dtype == want.dtype and bool(torch.equal(got, want))
+        del got, want
+        ms = _time_ms(torch, kernel, 20)
+        test_ms = _time_ms(torch, with_test, 20)
+        plain_ms = _time_ms(torch, lambda: plain((cur,), consts), 3)
+        elem = cur.element_size()
+        passes = len(kernels.flood_plan(shape, conn, cap, full, elem))
+        nbytes = passes * cur.numel() * (2 * elem + 1)
+        bound_ms, by = bound(0, nbytes)
+        test_bound_ms, _ = bound(0, nbytes + 2 * elem * cur.numel())
+        row = {"kernel": binding.__name__, "shape": list(shape),
+               "connectivity": conn, "max_run": cap, "passes": passes,
+               "equal": equal, "ms": ms, "with_change_test_ms": test_ms,
+               "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
+               "bound_by": by, "share": bound_ms / ms,
+               "with_change_test_bound_ms": test_bound_ms,
+               "with_change_test_share": test_bound_ms / test_ms}
+        out["rounds"].append(row)
+        print(f"phase 25 {binding.__name__} {tuple(shape)} conn {conn} "
+              f"max_run {cap}: bitwise {equal}, kernel {ms:.3f} ms (with "
+              f"the change test {test_ms:.3f}) plain {plain_ms:.3f} ms, "
+              f"{passes} passes, bound {bound_ms:.4g} ms ({by}) share "
+              f"{bound_ms / ms:.3f} (with the test {test_bound_ms:.4g} ms, "
+              f"{test_bound_ms / test_ms:.3f}) {'ok' if equal else 'FAIL'}")
+        if not equal:
+            raise AssertionError(f"phase 25 {binding.__name__} {shape}: the "
+                                 "kernel round differs from the plain one")
+        del cur, mask, consts
+        torch.cuda.empty_cache()
+    out["launches"] = {k: v for k, v in kernels.launch_counts().items()
+                       if k.startswith("flood_")}
+    out["seconds"] = time.time() - t_phase
+    print(f"phase 25: {out['seconds']:.1f} s, launches {out['launches']}")
+    return out
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3878,7 +3977,7 @@ def main() -> int:
     build_s = time.time() - t0
     print(f"phase 2 build: {build_s:.1f} s -> {lib}, "
           f"{[str(p) for p in libs3]}")
-    for stem in ("nlm", "lpcv2d", "segstats", "lpcv3d"):
+    for stem in ("nlm", "lpcv2d", "segstats", "lpcv3d", "flood"):
         for line in _build.ptxas_report(stem):
             print(f"phase 2 ptxas {stem}.cu: {line}")
 
@@ -4555,6 +4654,10 @@ def main() -> int:
     # 24. the fixpoint floods from CUDA graphs
     floods = _flood_graph_phase(torch, dev, {"7b": clf, "10b": clf10})
 
+    # 25. the flood rounds' kernels against their plain twins
+    torch.cuda.empty_cache()
+    flood_rounds = _flood_kernel_phase(torch, dev)
+
     by_path = {"fov_step": (launches, PATH_2D),
                "volume_3d": (launches3, PATH_3D),
                "fov_step_ecoli": (launches10, PATH_ECOLI),
@@ -4644,6 +4747,7 @@ def main() -> int:
                                         "warmup": warm,
                                         "stencil_forms": stencils},
                       "dense": dense, "flood_graphs": floods,
+                      "flood_rounds": flood_rounds,
                       "volume_3d": {"remap_peak_gib": remap_gib,
                                     "labels_sha256": labels_sha}}))
     print(json.dumps({"ok": True, "device": {

@@ -227,7 +227,119 @@ def lpcv3d(vol: torch.Tensor, bf16: bool, patch_size: int = 11,
     return out
 
 
-KERNELS = (nlm, lpcv2d, label_stats, label_lookup, stats_cm, lpcv3d)
+# the longest run window one hf_flood_runs pass takes, by element size
+# (csrc/flood.cu stages a block of W + 1 voxels and one block each side);
+# a longer window takes several passes whose radii sum to it
+FLOOD_RADIUS = {4: 63, 1: 255}
+
+
+def run_window(n: int, max_run: int | None) -> int:
+    """The radius W of labeling's segmented scans along an axis of n
+    voxels: the doubling steps d = 1, 2, 4, ... < min(n, max_run) reach
+    2^ceil(log2 min(n, max_run)) - 1 voxels, forward and then back."""
+    m = n if max_run is None else min(n, max_run)
+    return 0 if m <= 1 else (1 << (m - 1).bit_length()) - 1
+
+
+def flood_plan(shape, connectivity: int, max_run: int | None, full: bool,
+               elem_bytes: int) -> list:
+    """The passes of one flood round over a tensor of ``shape`` seen as a
+    3D (n0, n1, n2) array (leading unit axes for 1D and 2D):
+    ``("neighbor", side, mid)`` and ``("runs", axis, radius, fold)``.
+
+    The neighbour pass takes the offsets with lo <= |o|_1 <= hi, (1, 3)
+    for the min round's full window (``full``) and (2, connectivity)
+    otherwise, as bits by in-plane class d (0 centre, 1 axial, 2
+    diagonal): ``side`` those of the planes either side (|o|_1 = 1 + d),
+    ``mid`` those of the voxel's own plane. Where the set is empty
+    (connectivity 1) the first run pass folds it in (``fold``: off-mask
+    voxels read as the identity). Each axis whose window min(W, n - 1) is
+    not 0 takes run passes of radius <= FLOOD_RADIUS[elem_bytes]."""
+    lo, hi = (1, 3) if full else (2, connectivity)
+    side = sum(1 << d for d in range(3) if lo <= 1 + d <= hi)
+    mid = sum(1 << d for d in (1, 2) if lo <= d <= hi)
+    fold = lo > hi
+    steps = [] if fold else [("neighbor", side, mid)]
+    shape3 = (1,) * (3 - len(shape)) + tuple(shape)
+    for axis, n in enumerate(shape3):
+        w = min(run_window(n, max_run), n - 1)
+        while w > 0:
+            r = min(w, FLOOD_RADIUS[elem_bytes])
+            steps.append(("runs", axis, r, fold and len(steps) == 0))
+            w -= r
+    return steps or [("neighbor", side, mid)]
+
+
+def _flood_round(name: str, cur: torch.Tensor, mask: torch.Tensor,
+                 connectivity: int, max_run: int | None,
+                 full: bool) -> torch.Tensor:
+    _require(mask, f"{name} mask", (torch.bool,))
+    if not 1 <= cur.ndim <= 3 or mask.shape != cur.shape \
+            or mask.device != cur.device:
+        raise ValueError(f"{name}: cur and mask must share a 1-3D shape and "
+                         f"a device, got {tuple(cur.shape)} on {cur.device} "
+                         f"and {tuple(mask.shape)} on {mask.device}")
+    if not 1 <= connectivity <= cur.ndim \
+            or (max_run is not None and max_run < 1):
+        raise ValueError(f"{name}: connectivity 1..{cur.ndim} and max_run "
+                         f"None or >= 1 required, got {connectivity}, "
+                         f"{max_run}")
+    if cur.numel() == 0:
+        return cur.clone()
+    lib = _build.load()
+    shape3 = (1,) * (3 - cur.ndim) + tuple(cur.shape)
+    elem = cur.element_size()
+    steps = flood_plan(cur.shape, connectivity, max_run, full, elem)
+    bufs = [torch.empty_like(cur) for _ in range(min(2, len(steps)))]
+    src, stream = cur, _stream(cur)
+    for i, step in enumerate(steps):
+        # the last pass writes bufs[0]; no pass writes what it reads
+        dst = bufs[(len(steps) - 1 - i) % 2]
+        if step[0] == "neighbor":
+            err = lib.hf_flood_neighbor(src.data_ptr(), mask.data_ptr(),
+                                        dst.data_ptr(), elem, *shape3,
+                                        step[1], step[2], stream)
+        else:
+            _, axis, radius, fold = step
+            n = shape3[axis]
+            inner = int(np.prod(shape3[axis + 1:]))
+            err = lib.hf_flood_runs(src.data_ptr(), mask.data_ptr(),
+                                    dst.data_ptr(), elem, cur.numel() // n,
+                                    n, inner, radius, int(fold), stream)
+        _build.check(lib, err, name)
+        src = dst
+    return bufs[0]
+
+
+def flood_min(cur: torch.Tensor, mask: torch.Tensor, connectivity: int,
+              max_run: int | None = None) -> torch.Tensor:
+    """One round of labeling's min flood (``label``,
+    ``segstats.rank_labels``) over an int32 1-3D ``cur`` and a bool
+    ``mask`` (csrc/flood.cu), bitwise labeling._min_round_plain: the
+    3^ndim window where connectivity == ndim, else the offsets with
+    2 <= |o|_1 <= connectivity, then each axis's run window."""
+    _require(cur, "flood_min cur", (torch.int32,))
+    out = _flood_round("flood_min", cur, mask, connectivity, max_run,
+                       connectivity == cur.ndim)
+    flood_min.launches += 1
+    return out
+
+
+def flood_reach(cur: torch.Tensor, mask: torch.Tensor, connectivity: int,
+                max_run: int | None = None) -> torch.Tensor:
+    """One round of labeling.flood_reach over a bool (or uint8 0/1) 1-3D
+    ``cur`` and a bool ``mask`` (csrc/flood.cu), bitwise
+    labeling._reach_round_plain: the OR over the offsets with
+    2 <= |o|_1 <= connectivity, then each axis's run window."""
+    _require(cur, "flood_reach cur", (torch.bool, torch.uint8))
+    out = _flood_round("flood_reach", cur, mask, connectivity, max_run,
+                       False)
+    flood_reach.launches += 1
+    return out
+
+
+KERNELS = (nlm, lpcv2d, label_stats, label_lookup, stats_cm, lpcv3d,
+           flood_min, flood_reach)
 
 
 def reset_launches() -> None:

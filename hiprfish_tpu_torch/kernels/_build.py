@@ -63,6 +63,10 @@ SIGNATURES = {
     "hf_stats_cm": (_P, _P, _I, _P, _L, _I, _I, _P),
     # vol, out, nx, nz, ny, patch, theta, phi, bf16, stream
     "hf_lpcv3d": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # cur, mask, out, elem_bytes, n0, n1, n2, side, mid, stream
+    "hf_flood_neighbor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # in, mask, out, elem_bytes, lines, n, inner, radius, fold, stream
+    "hf_flood_runs": (_P, _P, _P, _I, _L, _I, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -13,6 +13,12 @@ CUDA graphs of ``_GRAPH_ROUNDS`` rounds that write their change flags to
 the card and reads the flags once a replay. Each run of a loop is a span
 (``flood.ccl``, ``flood.rank``, ``flood.reach``, ``flood.watershed``)
 whose ``rounds`` is the loop's iteration count.
+
+The min and reach rounds run on CUDA tensors as the hand-written kernels
+of ``csrc/flood.cu`` (``kernels.flood_min``, ``kernels.flood_reach``),
+bitwise the plain bodies ``_min_round_plain`` and ``_reach_round_plain``,
+which every other device takes; their spans' ``kernel`` attribute says
+which ran.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import itertools
 import torch
 import torch.autograd.profiler as _tap
 
+from hiprfish_tpu_torch import kernels
 from hiprfish_tpu_torch.utils.logging import host_wait, span
 
 _INF = 2**30
@@ -235,25 +242,33 @@ def _loop(body, state, consts, max_iters: int):
     return state, it
 
 
+def _takes_kernel(t: torch.Tensor) -> bool:
+    """Whether a min or reach round over ``t`` runs csrc/flood.cu: CUDA
+    tensors; every other device takes the plain body."""
+    return t.is_cuda
+
+
 def _fixpoint(name: str, key, body, state, consts, max_iters: int):
     """Run ``body(state, consts) -> state`` (tuples of tensors) until a
     round changes nothing or for ``max_iters`` rounds, as the span
-    ``name`` with its ``rounds``, ``replays`` (graph replays) and
-    ``captured`` (1 where this call captured its graphs). Returns the
-    final state.
+    ``name`` with its ``rounds``, ``replays`` (graph replays),
+    ``captured`` (1 where this call captured its graphs) and ``kernel``
+    (1 where the rounds ran csrc/flood.cu: a body marked ``kernel`` over
+    a state that ``_takes_kernel``). Returns the final state.
 
     Where ``_takes_graphs`` (2D CUDA tensors), the loop replays the
-    graphs of ``_Rounds`` for (``key``, k, the device, each tensor's shape
-    and dtype), captured on first use (outside any span, and never while
-    a profiler records: until then such a call runs one round at a time),
-    and returns clones of the graphs' state buffers, which the next call
-    of the same key overwrites. Otherwise (CPU and 3D tensors) one round
-    at a time (``_loop``)."""
+    graphs of ``_Rounds`` for (``key``, k, the device, ``kernel``, each
+    tensor's shape and dtype), captured on first use (outside any span,
+    and never while a profiler records: until then such a call runs one
+    round at a time), and returns clones of the graphs' state buffers,
+    which the next call of the same key overwrites. Otherwise (CPU and 3D
+    tensors) one round at a time (``_loop``)."""
     global captures, replays
     rounds, captured, reps = None, 0, 0
+    kernel = int(getattr(body, "kernel", False) and _takes_kernel(state[0]))
     if _takes_graphs(state[0]):
         dev = state[0].device
-        full = (key, _GRAPH_ROUNDS, dev,
+        full = (key, _GRAPH_ROUNDS, dev, kernel,
                 tuple((t.shape, t.dtype) for t in state + consts))
         rounds = _GRAPHS.get(full)
         if rounds is None and not _tap._is_profiler_enabled:
@@ -274,7 +289,7 @@ def _fixpoint(name: str, key, body, state, consts, max_iters: int):
             it, reps = _replay_rounds(rounds.replay, rounds.k, max_iters)
             replays += reps
             state = tuple(t.clone() for t in rounds.state)
-        sp.set(rounds=it, replays=reps, captured=captured)
+        sp.set(rounds=it, replays=reps, captured=captured, kernel=kernel)
     return state
 
 
@@ -299,8 +314,31 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
     return _flood_reach_flat(seeds, mask, connectivity, max_iters, max_run)
 
 
+def _on_kernel(plain, binding, connectivity: int, max_run: int | None):
+    """A round body marked ``kernel``: ``binding`` (a csrc/flood.cu
+    round over the state and the mask, ``consts[0]``) where
+    ``_takes_kernel``, else the plain body."""
+    def body(state, consts):
+        (cur,), mask = state, consts[0]
+        if _takes_kernel(cur):
+            return (binding(cur.contiguous(), mask.contiguous(),
+                            connectivity, max_run),)
+        return plain(state, consts)
+
+    body.kernel = True
+    return body
+
+
 def _reach_round(ndim: int, connectivity: int, max_run: int | None):
-    """One round of ``flood_reach``: state (reach,), inputs (mask,)."""
+    """One round of ``flood_reach``: state (reach,), inputs (mask,);
+    ``kernels.flood_reach`` on CUDA tensors."""
+    return _on_kernel(_reach_round_plain(ndim, connectivity, max_run),
+                      kernels.flood_reach, connectivity, max_run)
+
+
+def _reach_round_plain(ndim: int, connectivity: int,
+                       max_run: int | None):
+    """One round of ``flood_reach`` in torch ops."""
     shifts = [s for s in _neighbor_shifts(ndim, connectivity)
               if sum(abs(o) for o in s) >= 2]
 
@@ -353,7 +391,13 @@ def border_mask(shape, device=None) -> torch.Tensor:
 
 def _min_round(ndim: int, connectivity: int, max_run: int | None):
     """One round of ``_min_flood``: state (lbl,), inputs (mask, a tensor
-    of _INF)."""
+    of _INF); ``kernels.flood_min`` on CUDA tensors."""
+    return _on_kernel(_min_round_plain(ndim, connectivity, max_run),
+                      kernels.flood_min, connectivity, max_run)
+
+
+def _min_round_plain(ndim: int, connectivity: int, max_run: int | None):
+    """One round of ``_min_flood`` in torch ops."""
     shifts = [s for s in _neighbor_shifts(ndim, connectivity)
               if sum(abs(o) for o in s) >= 2]
     full_conn = connectivity == ndim

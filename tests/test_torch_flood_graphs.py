@@ -14,7 +14,11 @@ the same calls with the graphs turned off (bitwise outputs, equal
 ``rounds`` in their spans), on masks of 7-bit and 10-bit confluent and
 sparse FOVs (``utils/synthetic.make_fov``), random masks and a serpentine
 channel of > 40 rounds, at connectivity 1 and 2, with caps that bind
-inside a replay, and with one key called twice in a row.
+inside a replay, and with one key called twice in a row; and
+``flood_reach``, ``label`` and ``rank_labels`` with their rounds on the
+kernels of csrc/flood.cu against the plain rounds (bitwise outputs, equal
+``rounds``, ``kernel`` 1 and 0), in 2D from graphs and in 3D one round at
+a time.
 
     python -m pytest --noconftest tests/test_torch_flood_graphs.py -m cuda
 """
@@ -158,13 +162,15 @@ def flood_call(flood: str, mask: torch.Tensor, conn: int, max_iters: int,
 @pytest.mark.parametrize("flood", FLOODS)
 def test_cpu_and_3d_tensors_keep_the_loop(flood):
     """CPU tensors, 2D or 3D, run one round at a time: no capture, no
-    replay, ``replays`` and ``captured`` 0 in every flood span."""
+    replay, ``replays``, ``captured`` and ``kernel`` 0 in every flood
+    span."""
     before = (lab.captures, lab.replays, len(lab._GRAPHS))
     for mask in (serpentine(6, 12), serpentine(6, 12)[:24].reshape(2, 12,
                                                                      12)):
         _, spans = flood_spans(flood_call(flood, mask, 1, 512))
         assert spans and all(a["replays"] == 0 and a["captured"] == 0
-                             and a["rounds"] >= 1 for _, a in spans)
+                             and a["kernel"] == 0 and a["rounds"] >= 1
+                             for _, a in spans)
     assert (lab.captures, lab.replays, len(lab._GRAPHS)) == before
 
 
@@ -309,3 +315,57 @@ def test_3d_cuda_tensors_keep_the_loop(cuda, flood):
     assert_same(tuple(t.cpu() for t in (out if isinstance(out, tuple)
                                         else (out,))),
                 want if isinstance(want, tuple) else (want,))
+
+
+def kernel_and_plain(fn, monkeypatch):
+    """((output, spans) with the rounds on csrc/flood.cu, (output, spans)
+    with the plain rounds on the same card), each call once unrecorded
+    first so that its graphs are captured."""
+    fn()
+    kernel = flood_spans(fn)
+    with monkeypatch.context() as mp:
+        mp.setattr(lab, "_takes_kernel", lambda t: False)
+        fn()
+        plain = flood_spans(fn)
+    return kernel, plain
+
+
+def assert_kernel_kept_the_plain_rounds(kernel, plain, graphs: bool):
+    (out_k, spans_k), (out_p, spans_p) = kernel, plain
+    assert_same(out_k, out_p)
+    assert spans_k and [n for n, _ in spans_k] == [n for n, _ in spans_p]
+    for (_, k), (_, p) in zip(spans_k, spans_p):
+        assert k["rounds"] == p["rounds"] >= 1
+        assert (k["replays"] >= 1) if graphs else (k["replays"] == 0)
+        assert k["kernel"] == 1 and p["kernel"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flood", ("reach", "ccl", "rank"))
+@pytest.mark.parametrize("conn,max_run", [(1, None), (2, None), (1, 16),
+                                          (2, 16), (1, 64), (2, 128)])
+@pytest.mark.parametrize("kind", FOVS + ("random0.5", "random0.7",
+                                          "serpentine"))
+def test_kernel_rounds_keep_the_plain_floods_2d(cuda, monkeypatch, flood,
+                                                conn, max_run, kind):
+    fn = flood_call(flood, card_mask(kind, flood).to(cuda), conn, 2048,
+                    max_run)
+    assert_kernel_kept_the_plain_rounds(*kernel_and_plain(fn, monkeypatch),
+                                        graphs=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flood", ("reach", "ccl", "rank"))
+@pytest.mark.parametrize("conn", [1, 2, 3])
+@pytest.mark.parametrize("max_run", [None, 8, 32, 128])
+@pytest.mark.parametrize("shape,density", [((24, 40, 150), 0.6),
+                                           ((9, 170, 301), 0.75),
+                                           ((130, 7, 66), 0.5)])
+def test_kernel_rounds_keep_the_plain_floods_3d(cuda, monkeypatch, flood,
+                                                conn, max_run, shape,
+                                                density):
+    gen = torch.Generator().manual_seed(sum(shape) + conn)
+    mask = (torch.rand(shape, generator=gen) < density).to(cuda)
+    fn = flood_call(flood, mask, conn, 512, max_run)
+    assert_kernel_kept_the_plain_rounds(*kernel_and_plain(fn, monkeypatch),
+                                        graphs=False)

@@ -23,6 +23,7 @@ from hiprfish_tpu_torch.config import TEN_BIT, SegmentationConfig
 from hiprfish_tpu_torch.kernels import _build
 from hiprfish_tpu_torch.models.artifacts import load_classifier
 from hiprfish_tpu_torch.ops import denoise, kmeans, line_profile, segstats
+from hiprfish_tpu_torch.ops import labeling as lab
 from hiprfish_tpu_torch.pipeline import fused, fused_ecoli, segment2d
 from hiprfish_tpu_torch.pipeline import segment3d
 from hiprfish_tpu_torch.utils import synthetic
@@ -75,6 +76,8 @@ def _labels(shape, seed=0):
     lambda t: kernels.stats_cm(t.reshape(-1).to(torch.int32),
                                t.reshape(1, -1), 8),
     lambda t: kernels.lpcv3d(t[None], True),
+    lambda t: kernels.flood_min(t.to(torch.int32), t > 0, 2),
+    lambda t: kernels.flood_reach(t > 0, t > 0, 1),
 ])
 def test_bindings_refuse_cpu_tensors(call):
     before = kernels.launch_counts()
@@ -110,7 +113,7 @@ def test_build_dir_hashes_sources_and_flags(monkeypatch):
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
     assert {p.name for p in _build.sources()} >= {
-        "nlm.cu", "lpcv2d.cu", "segstats.cu", "lpcv3d.cu",
+        "nlm.cu", "lpcv2d.cu", "segstats.cu", "lpcv3d.cu", "flood.cu",
         "lpcv3d_tables.cuh"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.build_dir() != d
@@ -665,6 +668,81 @@ def test_prefetcher_stages_planes_on_the_card(tmp_path, cuda):
                 want = torch.from_numpy(iio.load_image(f)).to(cuda)
                 assert t.device == cuda and t.dtype == torch.float32
                 assert torch.equal(t, want) and torch.equal(d, want * 2.0)
+
+
+def _flood_case(cuda, kind, shape, density, seed):
+    """A random mask and state of one flood round on the card: the min
+    state with values off the mask (round 1 of rank reads them) and runs
+    of every length, the reach state sparse seeds."""
+    gen = torch.Generator().manual_seed(seed)
+    mask = torch.rand(shape, generator=gen) < density
+    if kind == "min":
+        cur = torch.randint(1, 1 << 20, shape, generator=gen,
+                            dtype=torch.int32)
+        cur[torch.rand(shape, generator=gen) < 0.2] = lab._INF
+    else:
+        cur = torch.rand(shape, generator=gen) < 0.02
+    return cur.to(cuda), mask.to(cuda)
+
+
+def _flood_pair(kind, cur, mask, connectivity, max_run):
+    """(kernel round, plain round) of one flood round on the card."""
+    if kind == "min":
+        got = kernels.flood_min(cur, mask, connectivity, max_run)
+        (want,) = lab._min_round_plain(cur.ndim, connectivity, max_run)(
+            (cur,), (mask, torch.full_like(cur, lab._INF)))
+    else:
+        got = kernels.flood_reach(cur, mask, connectivity, max_run)
+        (want,) = lab._reach_round_plain(cur.ndim, connectivity, max_run)(
+            (cur,), (mask,))
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["min", "reach"])
+@pytest.mark.parametrize("max_run", [None, 1, 2, 5, 16, 32, 64, 128])
+@pytest.mark.parametrize("shape,connectivity", [
+    ((1,), 1), ((2,), 1), ((3001,), 1), ((333, 517), 1), ((333, 517), 2),
+    ((2000, 64), 2), ((64, 2000), 1), ((7, 170, 301), 1), ((7, 170, 301), 2),
+    ((7, 170, 301), 3), ((40, 33, 65), 3), ((8, 170, 2020), 3),
+    ((1, 1, 600), 3), ((600, 1, 1), 2)])
+def test_flood_round_kernels_bitwise_plain(cuda, kind, max_run, shape,
+                                           connectivity):
+    """Each kernel round against its plain twin on the card, bitwise:
+    1-3D, every connectivity, caps from none to past the line, masks
+    sparse, half full and nearly solid, sizes up to a tile's slice of
+    8 planes, and unit axes."""
+    for density in (0.3, 0.6, 0.97):
+        cur, mask = _flood_case(cuda, kind, shape, density,
+                                sum(shape) + int(100 * density))
+        before = getattr(kernels, f"flood_{kind}").launches
+        got, want = _flood_pair(kind, cur, mask, connectivity, max_run)
+        torch.cuda.synchronize()
+        assert getattr(kernels, f"flood_{kind}").launches == before + 1
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), (density, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+def test_flood_round_kernels_refuse_other_inputs(cuda):
+    cur = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    mask = torch.ones((8, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.flood_min(cur.to(torch.int64), mask, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.flood_reach(cur, mask, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.flood_min(cur, mask.to(torch.uint8), 2)
+    with pytest.raises(ValueError, match="connectivity"):
+        kernels.flood_min(cur, mask, 3)
+    with pytest.raises(ValueError, match="connectivity"):
+        kernels.flood_min(cur, mask, 1, 0)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.flood_min(cur, mask[:4], 1)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.flood_min(cur[None, None], mask[None, None], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.flood_min(cur.t()[:, :4], mask[:, :4], 1)
 
 
 @pytest.mark.cuda

@@ -270,7 +270,7 @@ def test_profile_tool_reads_its_stage_table_from_the_spans(runs):
     assert step["calls"] == 1
     assert step["host_ms"] == pytest.approx(sum(
         r["self_host_ms"] for r in table.values()))
-    for k in ("rounds", "replays"):
+    for k in ("rounds", "replays", "kernel"):
         assert sum(r[k] for r in table.values()) == sum(
             r["attrs"].get(k, 0) for r in records)
     assert sum(r["wait_ms"] for r in table.values()) == pytest.approx(sum(

@@ -30,7 +30,8 @@ artifacts; and reports:
     (``hiprfish_tpu_torch.utils.logging``) in the one profiled call,
     nothing synchronised: for each span path (``step/markers/flood.ccl``)
     its calls, fixpoint rounds, the floods'
-    CUDA graph replays, host and host self time, the routed reads'
+    CUDA graph replays and calls whose rounds ran csrc/flood.cu
+    (``kernel``), host and host self time, the routed reads'
     ``wait_ns``, the blocking host calls, the device time and launches of
     the kernels and copies launched while it was the innermost
     ``hiprfish::`` range, and the card's idle time while it was
@@ -251,10 +252,11 @@ SYNC_CALLS = frozenset((
 
 
 def span_table(prof, records) -> dict:
-    """{span path: calls, rounds, replays, host_ms, self_host_ms, wait_ms,
-    sync_ms, syncs, device_ms, launches, idle_ms} of a profiled run. The
-    host columns come from the span records (``replays``: a flood's graph
-    replays; ``wait_ms``: the reads routed through ``host_wait``); the
+    """{span path: calls, rounds, replays, kernel, host_ms, self_host_ms,
+    wait_ms, sync_ms, syncs, device_ms, launches, idle_ms} of a profiled
+    run. The host columns come from the span records (``replays``: a
+    flood's graph replays; ``kernel``: its calls whose rounds ran
+    csrc/flood.cu; ``wait_ms``: the reads routed through ``host_wait``); the
     others from the profiler, each event given to the innermost
     ``hiprfish::`` range around it on the host: every blocking host call
     (``syncs``, and its time ``sync_ms``), every kernel or copy by its
@@ -273,14 +275,16 @@ def span_table(prof, records) -> dict:
         if r["parent"] is not None:
             child_ns[r["parent"]] += r["end_ns"] - r["start_ns"]
     rows = collections.defaultdict(lambda: dict.fromkeys(
-        ("calls", "rounds", "replays", "host_ms", "self_host_ms", "wait_ms",
-         "sync_ms", "syncs", "device_ms", "launches", "idle_ms"), 0))
+        ("calls", "rounds", "replays", "kernel", "host_ms", "self_host_ms",
+         "wait_ms", "sync_ms", "syncs", "device_ms", "launches", "idle_ms"),
+        0))
     for r in records:
         row = rows[paths[r["id"]]]
         dur = r["end_ns"] - r["start_ns"]
         row["calls"] += 1
         row["rounds"] += r["attrs"].get("rounds", 0)
         row["replays"] += r["attrs"].get("replays", 0)
+        row["kernel"] += r["attrs"].get("kernel", 0)
         row["host_ms"] += dur / 1e6
         row["self_host_ms"] += (dur - child_ns[r["id"]]) / 1e6
         row["wait_ms"] += r["attrs"].get("wait_ns", 0) / 1e6
@@ -335,7 +339,8 @@ def span_table(prof, records) -> dict:
 
 # the device functions of csrc/ (B1-B6 and B3's moments pass)
 PORT_KERNELS = ("nlm_", "lpcv2d_", "label_stats_kernel", "moments_to_table",
-                "label_lookup_kernel", "stats_cm_kernel", "lpcv3d_")
+                "label_lookup_kernel", "stats_cm_kernel", "lpcv3d_",
+                "flood_neighbor_kernel", "flood_runs_kernel")
 
 
 def main() -> int:
@@ -499,7 +504,7 @@ def main() -> int:
     print(f"{what} wall {wall_ms:.1f} ms (median of {reps})")
     if spans is not None:
         print("spans of the profiled call, per FOV (ms, but calls, rounds, "
-              "replays, syncs and launches):")
+              "replays, kernel, syncs and launches):")
         keys = list(next(iter(spans.values())))
         print(f"  {'path':36s}" + "".join(f"{k:>13s}" for k in keys))
         for path, r in spans.items():
